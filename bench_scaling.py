@@ -1,18 +1,15 @@
 """Weak-scaling harness: sharded halo-SpMV and PCG across a device mesh.
 
-BASELINE.md target: ≥ 80% weak-scaling efficiency at N ≥ 2 hosts on a
-row-partitioned hierarchy.  This harness keeps the per-device row count
-fixed, grows the mesh 1 → N devices, and reports SpMV wall-time and
-efficiency (t_1 / t_N; ideal = 1.0 under weak scaling).
+This harness keeps the per-device row count fixed, grows the mesh
+1 → N GPUs, and reports SpMV wall-time and efficiency (t_1 / t_N;
+ideal = 1.0 under weak scaling), then the same for the sharded PCG, then
+the per-level communication table of the sharded hierarchy.
 
-On a single-chip or CPU session this runs against virtual devices
-(JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
-python bench_scaling.py) and validates the communication structure; real
-efficiency numbers require a multi-chip slice.
-
+Usage (GPUs only):  python bench_scaling.py [--trace-dir DIR]
 Prints one JSON line per mesh size plus a summary line.
 """
 
+import argparse
 import json
 import sys
 import time
@@ -20,33 +17,8 @@ import time
 import numpy as np
 
 
-def _sync(x):
-    # full host transfer (scalar indexing of a sharded array is ambiguous
-    # under sharding-in-types; np.asarray gathers and blocks)
-    return float(np.asarray(x).ravel()[0])
-
-
 def main(rows_per_device: int = 65_536, reps: int = 30):
-    import os
-
     import jax
-
-    if not os.environ.get("TPU_AMG_SCALING_REAL"):
-        # default: fan out over 8 virtual CPU devices — a single-chip
-        # session has nothing to scale across, and jax may be
-        # pre-imported by the environment so env vars alone are
-        # unreliable; force via config before backend init.
-        # Set TPU_AMG_SCALING_REAL=1 on a real multi-chip slice.
-        try:
-            jax.config.update("jax_platforms", "cpu")
-            jax.config.update("jax_num_cpu_devices", 8)
-        except Exception:
-            pass
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/tpu_amg_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-
     import jax.numpy as jnp
 
     from tpu_amg.parallel import HaloELL, halo_spmv, make_solver_mesh
@@ -77,9 +49,9 @@ def main(rows_per_device: int = 65_536, reps: int = 30):
             u, _ = jax.lax.scan(body, v, None, length=reps)
             return u
 
-        _sync(spmv_n(h, x))
+        jax.block_until_ready(spmv_n(h, x))
         t0 = time.perf_counter()
-        _sync(spmv_n(h, x))
+        jax.block_until_ready(spmv_n(h, x))
         dt = (time.perf_counter() - t0) / reps
         if t1 is None:
             t1 = dt
@@ -158,10 +130,10 @@ def solver_weak_scaling(iters: int = 40):
         solve = jax.jit(
             lambda a_, b_, m_: cg(a_, b_, m_, rtol=0.0, maxiter=iters)
         )
-        _sync(solve(sop, b, mg_sh)[0])  # compile
+        jax.block_until_ready(solve(sop, b, mg_sh))  # compile
         t0 = time.perf_counter()
         x, info = solve(sop, b, mg_sh)
-        _sync(x)
+        jax.block_until_ready(x)
         dt = (time.perf_counter() - t0) / iters
         results.append((nd, a.nrows, dt))
         eff = results[0][2] / dt
@@ -186,14 +158,12 @@ def solver_weak_scaling(iters: int = 40):
 
 def comm_accounting(mg_sh, mesh, n_fine, axis="x"):
     """Static per-level communication table for a sharded multigrid: the
-    ICI bytes each SpMV moves (ring halo slabs) vs the bytes an
-    all-gather fallback would move — the weak-scaling evidence the
-    virtual-mesh timings cannot provide (host oversubscription noise;
-    MEASURED.md round-3 caveat).  Every term is exact from the sharded
-    operators' static metadata, not modeled."""
+    bytes each SpMV moves between devices (ring halo slabs) vs the bytes
+    an all-gather fallback would move.  Every term is exact from the
+    sharded operators' static metadata, not modeled."""
     import jax.numpy as jnp
 
-    from tpu_amg.parallel.halo import HaloDIA, HaloELL, HaloWELL
+    from tpu_amg.parallel.halo import HaloDIA, HaloELL
 
     nd = mesh.shape[axis]
     rows = []
@@ -201,7 +171,7 @@ def comm_accounting(mg_sh, mesh, n_fine, axis="x"):
         a = getattr(lvl.a, "ell", lvl.a)
         n = a.shape[0]
         itemsize = jnp.dtype(getattr(a, "dtype", jnp.float32)).itemsize
-        if isinstance(a, (HaloELL, HaloDIA, HaloWELL)):
+        if isinstance(a, (HaloELL, HaloDIA)):
             halo_b = 2 * a.halo * itemsize  # two ring slabs per device
             allg_b = (nd - 1) * (n // nd) * itemsize
             rows.append({
@@ -219,13 +189,11 @@ def comm_accounting(mg_sh, mesh, n_fine, axis="x"):
     return rows
 
 
-def comm_table(iters: int = 3):
+def comm_table(trace_dir=None, iters: int = 3):
     """Build the dry-run production hierarchy sharded over the full
-    mesh and print its per-level comm table + (optionally) dump a
-    profiler trace of one sharded solve for collective-time inspection
-    (TPU_AMG_SCALING_TRACE=<dir>)."""
-    import os
-
+    mesh and print its per-level comm table; with ``trace_dir``, also
+    write a profiler trace of one sharded solve for collective-time
+    inspection."""
     import jax
     import jax.numpy as jnp
 
@@ -255,18 +223,25 @@ def comm_table(iters: int = 3):
     for row in table:
         print(json.dumps({"metric": "comm_accounting", **row}), flush=True)
 
-    trace_dir = os.environ.get("TPU_AMG_SCALING_TRACE")
     b = shard_vector(jnp.ones(ell.nrows, dtype=jnp.float32), mesh)
     solve = jax.jit(lambda a_, b_, m_: cg(a_, b_, m_, rtol=0.0,
                                           maxiter=iters)[0])
-    _sync(solve(a_sh, b, mg_sh))  # compile
+    jax.block_until_ready(solve(a_sh, b, mg_sh))  # compile
     if trace_dir:
         with jax.profiler.trace(trace_dir):
-            _sync(solve(a_sh, b, mg_sh))
+            jax.block_until_ready(solve(a_sh, b, mg_sh))
         print(f"# profiler trace written to {trace_dir} (collective time "
               "share: inspect ppermute/all-gather ops)", file=sys.stderr)
 
 
 if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trace-dir", default=None,
+                    help="write a profiler trace of one sharded solve here")
+    args = ap.parse_args()
+    from tpu_amg.utils.platform import require_gpu
+
+    dev = require_gpu()
+    print(f"# {dev['card']} x {dev['count']}", file=sys.stderr, flush=True)
     main()
-    comm_table()
+    comm_table(args.trace_dir)

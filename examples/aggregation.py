@@ -18,9 +18,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from tpu_amg.utils.platform import apply_env_platform
-
-apply_env_platform()
+import tpu_amg  # noqa: E402,F401  (x64 and the compile cache)
 
 
 def main():

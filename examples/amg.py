@@ -26,9 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 import numpy as np
 
-from tpu_amg.utils.platform import apply_env_platform
-
-apply_env_platform()
+import tpu_amg  # noqa: E402,F401  (x64 and the compile cache)
 
 
 def parse_args():
@@ -79,13 +77,8 @@ def parse_args():
                    help="adaptive composite with N components")
     p.add_argument("--structured", action="store_true",
                    help="gather-free structured-grid multigrid (tensor-"
-                        "grid problems only; fastest TPU path)")
+                        "grid problems only)")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--host-below", type=int, default=16384,
-                   help="pin the whole run to the host CPU backend when "
-                        "n is below this and the default device is an "
-                        "accelerator (tiny problems cost more in remote "
-                        "compiles than in math)")
     p.add_argument("--viz-out", type=str, default=None,
                    help="write hierarchy viz JSON here (reference dumps "
                         "data/hierarchy_viz.json, main.rs:384-387)")
@@ -205,13 +198,6 @@ def main():
     a, rhs = load_problem(args)
     print(f"system: n={a.nrows} nnz={a.nnz} block_size={a.block_size}",
           file=sys.stderr)
-    if a.nrows < args.host_below and jax.default_backend() != "cpu":
-        try:
-            jax.config.update("jax_default_device", jax.devices("cpu")[0])
-            print(f"host-pinned: n={a.nrows} < {args.host_below}",
-                  file=sys.stderr)
-        except RuntimeError:
-            pass
     key = jax.random.PRNGKey(args.seed)
     t_setup = time.time()
 

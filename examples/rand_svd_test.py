@@ -14,9 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_amg.utils.platform import apply_env_platform
-
-apply_env_platform()
+import tpu_amg  # noqa: E402,F401  (x64 and the compile cache)
 
 from tpu_amg.decompositions import rand_svd
 from tpu_amg.linop import DenseOperator

@@ -14,9 +14,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from tpu_amg.utils.platform import apply_env_platform
-
-apply_env_platform()
+import tpu_amg  # noqa: E402,F401  (x64 and the compile cache)
 
 import jax.numpy as jnp
 

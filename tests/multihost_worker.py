@@ -3,7 +3,7 @@ tests/test_multihost.py, or by hand):
 
     JAX_PLATFORMS=cpu python -m tests.multihost_worker <pid> <nproc> <port>
 
-Builds a 2x4 (dcn, ici) pod mesh, runs the sharded halo PCG on
+Builds a 2x4 (process, local) mesh, runs the sharded halo PCG on
 poisson2d(16), and prints the max deviation from the single-process
 solution.
 """
@@ -36,8 +36,8 @@ def main(process_id: int, num_processes: int, port: int) -> None:
     from tpu_amg.sparse import ELL
     from tpu_amg.utils.problems import poisson2d
 
-    mesh = multihost.pod_mesh()
-    assert dict(mesh.shape) == {"dcn": num_processes, "x": 4}, mesh.shape
+    mesh = multihost.process_mesh()
+    assert dict(mesh.shape) == {"proc": num_processes, "x": 4}, mesh.shape
     jax.set_mesh(mesh)
 
     a = poisson2d(16)  # 256 dofs over 8 global devices
@@ -46,8 +46,8 @@ def main(process_id: int, num_processes: int, port: int) -> None:
 
     x_ref = spla.spsolve(a.to_scipy().tocsc(), np.ones(a.nrows))
 
-    # halo over the flattened (dcn, ici) row order — the ring crosses DCN
-    # once per process boundary
+    # halo over the flattened (process, local) row order — the ring
+    # leaves a process once per process boundary
     flat = jax.sharding.Mesh(
         np.array(jax.devices()).reshape(-1), ("rows",)
     )

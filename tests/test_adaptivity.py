@@ -161,3 +161,52 @@ class TestRandSVD:
             "nk,nk->k", v, v
         )
         assert rq.max() < 2.0  # smooth modes of Poisson have small RQ
+
+
+class TestDeviceBootstrapPath:
+    """With an accelerator present, find_near_null builds its f32
+    smoothing operator through ``SparseOperator.from_csr`` — the format
+    decision every other operator gets — and lets build errors raise.
+    The CPU stands in for the accelerator here."""
+
+    def _spy(self, monkeypatch, fail: bool):
+        import tpu_amg.adaptivity as adaptivity
+        from tpu_amg.linop import SparseOperator
+
+        calls = []
+        real = SparseOperator.from_csr
+
+        def spy(csr, dtype=jnp.float64, **kw):
+            calls.append((csr.nrows, jnp.dtype(dtype)))
+            if fail:
+                raise RuntimeError("device format build failed")
+            return real(csr, dtype=dtype, **kw)
+
+        monkeypatch.setattr(SparseOperator, "from_csr", staticmethod(spy))
+        monkeypatch.setattr(
+            adaptivity, "_accel_device", lambda: jax.devices("cpu")[0]
+        )
+        return calls
+
+    def test_build_error_raises(self, monkeypatch):
+        import pytest
+
+        a = poisson2d(182)  # 33,124 rows >= 2**15
+        calls = self._spy(monkeypatch, fail=True)
+        with pytest.raises(RuntimeError, match="device format build failed"):
+            find_near_null(a, 2, 3, 16.0, jax.random.PRNGKey(0))
+        assert calls == [(a.nrows, jnp.dtype(jnp.float32))]
+
+    def test_small_system_keeps_f64(self, monkeypatch):
+        a = poisson2d(16)
+        calls = self._spy(monkeypatch, fail=False)
+        nn = find_near_null(a, 2, 3, 16.0, jax.random.PRNGKey(0))
+        assert nn.shape == (a.nrows, 3)
+        assert calls and all(dt == jnp.float64 for _, dt in calls)
+
+    def test_f32_path_runs(self, monkeypatch):
+        a = poisson2d(182)
+        calls = self._spy(monkeypatch, fail=False)
+        nn = find_near_null(a, 2, 3, 16.0, jax.random.PRNGKey(0))
+        assert calls[0] == (a.nrows, jnp.dtype(jnp.float32))
+        assert nn.shape == (a.nrows, 3) and np.isfinite(nn).all()

@@ -1,4 +1,4 @@
-"""BandedDense (dense-slab window) format tests — the MXU path for
+"""BandedDense (dense-slab window) format tests — the batched-matmul path for
 gather-hostile operators like smoothed-SA transfers (R rows hold
 hundreds of entries dense within a column window)."""
 
@@ -73,7 +73,7 @@ class TestBandedDense:
 
         sp = _smoothed_r_like()
         op = SparseOperator.from_csr(
-            CSR.from_scipy(sp), dtype=jnp.float32, prefer_well=False
+            CSR.from_scipy(sp), dtype=jnp.float32
         )
         assert isinstance(op.ell, BD)
 
@@ -125,7 +125,7 @@ class TestGatherHostileDispatch:
 
         sp = _hub_prolongation_like()
         op = SparseOperator.from_csr(
-            CSR.from_scipy(sp), dtype=jnp.float32, prefer_well=False
+            CSR.from_scipy(sp), dtype=jnp.float32
         )
         assert isinstance(op.ell, (BandedDense, BandedStack)), type(op.ell)
         rng = np.random.default_rng(6)
@@ -151,7 +151,7 @@ class TestGatherHostileDispatch:
             (np.ones(4 * n), (rows, cols)), shape=(n, nc)
         ).tocsr()
         op = SparseOperator.from_csr(
-            CSR.from_scipy(sp), dtype=jnp.float32, prefer_well=False
+            CSR.from_scipy(sp), dtype=jnp.float32
         )
         assert isinstance(op.ell, ELL)
 

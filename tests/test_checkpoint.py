@@ -44,8 +44,7 @@ def test_roundtrip_and_resume(tmp_path):
 
 def test_adaptive_composite_roundtrip(tmp_path):
     """The adaptive composite's per-component hierarchies round-trip and
-    the reloaded solver applies the same preconditioner (VERDICT round 1,
-    item 6; solver.py previously raised here)."""
+    the reloaded solver applies the same preconditioner."""
     from tpu_amg.solver import AMGSolver, SolverConfig
 
     a = poisson2d(12)

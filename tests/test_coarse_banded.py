@@ -48,7 +48,7 @@ class TestBandedCholesky:
 
     def test_dispatch_above_dense_cap(self, monkeypatch):
         # cholesky auto-switches to the banded factorization past the
-        # dense cap instead of raising (round-2 VERDICT missing #2)
+        # dense cap instead of raising
         import tpu_amg.preconditioners.coarse as coarse_mod
 
         monkeypatch.setattr(coarse_mod, "DENSE_COARSE_CAP", 500)

@@ -152,7 +152,7 @@ class TestShardedSolve:
     )
     def test_sharded_vcycle_equals_replicated(self, mesh, prefer_dia, smoother):
         """The sharded V-cycle (halo fine level) must reproduce the
-        replicated V-cycle numerically (VERDICT round 1, item 3)."""
+        replicated V-cycle numerically."""
         from tpu_amg.parallel.halo import HaloDIA, HaloELL
 
         mg, a = _build_algebraic_mg(prefer_dia=prefer_dia, smoother=smoother)
@@ -300,67 +300,87 @@ class TestSubMeshRedistribution:
             ctx.__exit__(None, None, None)
 
 
-class TestHaloWELL:
-    """Sharded WELL — the distributed production unstructured SpMV
-    (round-4 closure of the ELL/DIA-only halo gap)."""
+def _delaunay_system():
+    """64² jittered-Delaunay graph Laplacian, RCM'd (4096 = 8 * 512)."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from scipy.spatial import Delaunay
 
-    def _system(self):
-        import scipy.sparse as sps
-        from scipy.sparse.csgraph import reverse_cuthill_mckee
-        from scipy.spatial import Delaunay
+    rng = np.random.default_rng(0)
+    side = 64
+    n_pts = side * side
+    gx, gy = np.meshgrid(np.arange(side, dtype=np.float64),
+                         np.arange(side, dtype=np.float64))
+    pts = np.stack([gx.ravel(), gy.ravel()], 1)
+    pts += rng.uniform(-0.35, 0.35, pts.shape)
+    tri = Delaunay(pts[rng.permutation(n_pts)])
+    e = np.concatenate([tri.simplices[:, [0, 1]],
+                        tri.simplices[:, [1, 2]],
+                        tri.simplices[:, [2, 0]]])
+    i = np.concatenate([e[:, 0], e[:, 1]])
+    j = np.concatenate([e[:, 1], e[:, 0]])
+    a = sps.coo_matrix((np.ones(len(i)), (i, j)),
+                       shape=(n_pts, n_pts)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = -1.0
+    a = (a + sps.diags(np.asarray(-a.sum(axis=1)).ravel() + 1e-8)).tocsr()
+    p = reverse_cuthill_mckee(a, symmetric_mode=True)
+    ap = a[p][:, p].tocsr()
+    ap.sort_indices()
+    return ap
 
-        rng = np.random.default_rng(0)
-        side = 64
-        n_pts = side * side  # 4096 = 8 * 512
-        gx, gy = np.meshgrid(np.arange(side, dtype=np.float64),
-                             np.arange(side, dtype=np.float64))
-        pts = np.stack([gx.ravel(), gy.ravel()], 1)
-        pts += rng.uniform(-0.35, 0.35, pts.shape)
-        tri = Delaunay(pts[rng.permutation(n_pts)])
-        e = np.concatenate([tri.simplices[:, [0, 1]],
-                            tri.simplices[:, [1, 2]],
-                            tri.simplices[:, [2, 0]]])
-        i = np.concatenate([e[:, 0], e[:, 1]])
-        j = np.concatenate([e[:, 1], e[:, 0]])
-        a = sps.coo_matrix((np.ones(len(i)), (i, j)),
-                           shape=(n_pts, n_pts)).tocsr()
-        a.sum_duplicates()
-        a.data[:] = -1.0
-        a = (a + sps.diags(np.asarray(-a.sum(axis=1)).ravel() + 1e-8)
-             ).tocsr()
-        p = reverse_cuthill_mckee(a, symmetric_mode=True)
-        ap = a[p][:, p].tocsr()
-        ap.sort_indices()
-        return ap
 
-    def test_halo_well_matches_single(self, mesh):
-        from tpu_amg.parallel.halo import HaloWELL
+def _unstructured_poisson_system():
+    """utils.problems' 64² unstructured Poisson on another seed's mesh."""
+    from tpu_amg.utils.problems import unstructured_poisson_2d
+
+    return unstructured_poisson_2d(64, seed=1).to_scipy().tocsr()
+
+
+class TestHaloELLUnstructured:
+    """HaloELL — the distributed unstructured SpMV — against the
+    single-device ELL and scipy on two RCM'd Delaunay systems."""
+
+    SYSTEMS = {
+        "delaunay": _delaunay_system,
+        "unstructured_poisson": _unstructured_poisson_system,
+    }
+
+    def _halo(self, name, mesh):
         from tpu_amg.sparse.csr import CSR
 
-        ap = self._system()
-        n = ap.shape[0]
-        hw = HaloWELL.from_csr(CSR.from_scipy(ap), mesh)
-        assert hw.halo <= hw.n_loc_rows
-        x = np.random.default_rng(1).normal(size=n).astype(np.float32)
-        xs = shard_vector(jnp.asarray(x), mesh)
-        y = np.asarray(hw.mv(xs))
+        ap = self.SYSTEMS[name]()
+        ell = ELL.from_csr(CSR.from_scipy(ap), dtype=jnp.float32)
+        h = HaloELL.from_ell(ell, mesh)
+        assert h.halo <= h.n_loc_rows
+        return ap, ell, h
+
+    @pytest.mark.parametrize("name", sorted(SYSTEMS))
+    def test_halo_ell_matches_single(self, mesh, name):
+        ap, ell, h = self._halo(name, mesh)
+        x = np.random.default_rng(1).normal(size=ap.shape[0]).astype(
+            np.float32)
+        y = np.asarray(h.mv(shard_vector(jnp.asarray(x), mesh)))
+        y_single = np.asarray(ell.mv(jnp.asarray(x)))
         ref = ap @ x
+        np.testing.assert_allclose(
+            y, y_single, rtol=0, atol=1e-5 * np.abs(ref).max()
+        )
         np.testing.assert_allclose(
             y, ref, rtol=0, atol=2e-5 * np.abs(ref).max()
         )
 
-    def test_halo_well_multivector(self, mesh):
-        from tpu_amg.parallel.halo import HaloWELL
-        from tpu_amg.sparse.csr import CSR
-
-        ap = self._system()
-        n = ap.shape[0]
-        hw = HaloWELL.from_csr(CSR.from_scipy(ap), mesh)
-        xs = np.random.default_rng(2).normal(size=(n, 2)).astype(
+    @pytest.mark.parametrize("name", sorted(SYSTEMS))
+    def test_halo_ell_multivector(self, mesh, name):
+        ap, ell, h = self._halo(name, mesh)
+        xs = np.random.default_rng(2).normal(size=(ap.shape[0], 2)).astype(
             np.float32)
-        xss = shard_vector(jnp.asarray(xs), mesh)
-        ys = np.asarray(hw.mm(xss))
+        ys = np.asarray(h.mm(shard_vector(jnp.asarray(xs), mesh)))
+        ys_single = np.asarray(ell.mm(jnp.asarray(xs)))
         ref = ap @ xs
+        np.testing.assert_allclose(
+            ys, ys_single, rtol=0, atol=1e-5 * np.abs(ref).max()
+        )
         np.testing.assert_allclose(
             ys, ref, rtol=0, atol=2e-5 * np.abs(ref).max()
         )

@@ -1,5 +1,5 @@
 """Typed error hierarchy is wired into the code paths it documents
-(VERDICT round 1, item 9; reference intent: modularity.rs:183-186
+(reference intent: modularity.rs:183-186
 warn-and-break, hierarchy.rs:363-401 / multigrid.rs:582-608 error enums)."""
 
 import dataclasses

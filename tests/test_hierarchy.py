@@ -138,7 +138,7 @@ class TestCoarseDrop:
         common = dict(
             coarsening_near_null_dim=4, interp_near_null_dim=2,
             coarsening_factor=16.0, smoothing_iters=5, coarsest_dim=100,
-            dtype=jnp.float64, sa_trunc_tol=0.1, host_below=0, seed=0,
+            dtype=jnp.float64, sa_trunc_tol=0.1, seed=0,
         )
         plain = AMGSolver.setup(a, SolverConfig(**common))
         drop = AMGSolver.setup(
@@ -169,6 +169,6 @@ class TestCoarseDrop:
             coarsening_near_null_dim=8, interp_near_null_dim=6,
             coarsening_factor=8.0, smoothing_iters=5, coarsest_dim=200,
             dtype=jnp.float64, sa_trunc_tol=0.05, coarse_drop_tol=0.02,
-            host_below=0, seed=0,
+            seed=0,
         ))
         assert len(s.hierarchy.matrices) >= 2

@@ -1,26 +1,35 @@
-"""End-to-end solve of the SHIPPED real-FEM fixture through the MFEM
-loader (data/fem_square_k100: P1 stiffness of a 100:1 checkerboard
-diffusion problem on an unstructured Delaunay mesh, generated by
-tools/make_fem_fixture.py).
+"""End-to-end solve of a real-FEM fixture through the MFEM loader
+(fem_square_k100: P1 stiffness of a 100:1 checkerboard diffusion problem
+on an unstructured Delaunay mesh, generated from its seed by
+tools/make_fem_fixture.py into a temporary directory).
 
 This is the reference harness's consumption path (utils.rs:269-350:
 boundary elimination + index maps; examples/amg/main.rs:236-248) on a
 genuine coefficient-jump stiffness matrix rather than a synthetic graph
-Laplacian (VERDICT r4 missing #4)."""
+Laplacian."""
 
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-FIXTURE = Path(__file__).resolve().parent.parent / "data" / "fem_square_k100"
+TOOL = Path(__file__).resolve().parent.parent / "tools" / "make_fem_fixture.py"
 
 
 @pytest.fixture(scope="module")
-def system():
+def system(tmp_path_factory):
     from tpu_amg.utils.io import load_mfem_linear_system
 
-    return load_mfem_linear_system(FIXTURE, "fem_square_k100")
+    out = tmp_path_factory.mktemp("fem") / "fem_square_k100"
+    subprocess.run(
+        [sys.executable, str(TOOL), "--out", str(out), "--seed", "0"],
+        check=True,
+        capture_output=True,
+        timeout=300,
+    )
+    return load_mfem_linear_system(out, "fem_square_k100")
 
 
 def test_loader_shapes(system):

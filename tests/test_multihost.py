@@ -1,10 +1,10 @@
-"""2-process multihost rehearsal on CPU (VERDICT round 1, item 4).
+"""2-process multihost rehearsal on CPU.
 
 Spawns two OS processes, each with 4 virtual CPU devices, initializes
-``jax.distributed`` (Gloo collectives), builds the (dcn, ici) pod mesh,
-and runs the sharded halo PCG — asserting both processes converge to the
-single-process solution.  This is the CI stand-in for a multi-host TPU
-pod (SURVEY.md §7 stage 8; BASELINE weak-scaling scaffolding).
+``jax.distributed`` (Gloo collectives), builds the (process, local)
+mesh, and runs the sharded halo PCG — asserting both processes converge
+to the single-process solution.  This is the CI stand-in for a
+multi-host cluster (SURVEY.md §7 stage 8).
 """
 
 import os
@@ -30,7 +30,6 @@ def test_two_process_halo_pcg():
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)  # workers set their own device counts
     env["PYTHONPATH"] = str(REPO)
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/tpu_amg_jax_cache")
     procs = [
         subprocess.Popen(
             [

@@ -1,6 +1,6 @@
 """Mixed-precision preconditioning (tpu_amg/precision.py).
 
-The bf16 cycle is a TPU bandwidth feature; these CPU tests pin its
+The bf16 cycle is a memory-bandwidth feature; these CPU tests pin its
 semantics: casts hit every float leaf and nothing else, the wrapper
 keeps outer-loop dtypes intact, and PCG convergence survives a bf16
 V-cycle with iteration counts close to the full-precision run.

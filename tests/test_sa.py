@@ -171,7 +171,7 @@ class TestTruncation:
         common = dict(
             coarsening_near_null_dim=4, interp_near_null_dim=2,
             coarsening_factor=16.0, smoothing_iters=5, coarsest_dim=100,
-            dtype=jnp.float64, host_below=0, seed=0,
+            dtype=jnp.float64, seed=0,
         )
         plain = AMGSolver.setup(a, SolverConfig(**common))
         trunc = AMGSolver.setup(

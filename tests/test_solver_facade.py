@@ -98,3 +98,25 @@ def test_reorder_option_solves_scrambled_system():
     np.testing.assert_allclose(
         scrambled.matvec(np.asarray(x)), np.ones(scrambled.nrows), atol=1e-7
     )
+
+
+def test_level_matrices_match_device_operators():
+    """level_matrices() returns the host CSRs in the cycle's own
+    numbering (RCM-permuted levels included): each level's device A, R
+    and P apply exactly those matrices."""
+    a = poisson2d(40)
+    s = AMGSolver.setup(a, SolverConfig(
+        coarsening_near_null_dim=4, interp_near_null_dim=2,
+        smoothing_iters=4, coarsest_dim=40, aggregation_iters=10,
+        dense_threshold=0,
+    ))
+    mats = s.level_matrices()
+    assert len(mats) == len(s.preconditioner.levels) >= 2
+    rng = np.random.default_rng(1)
+    for level, (a_l, p_l, r_l) in zip(s.preconditioner.levels, mats):
+        for op, csr in ((level.a, a_l), (level.r, r_l), (level.p, p_l)):
+            x = rng.standard_normal(csr.ncols)
+            np.testing.assert_allclose(
+                np.asarray(op.mv(jnp.asarray(x))), csr.matvec(x),
+                rtol=1e-12, atol=1e-12,
+            )

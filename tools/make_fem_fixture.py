@@ -7,8 +7,7 @@ rhs, node coordinates, and a legacy-ASCII .vtk triangle mesh.
 This is the matrix class the reference's whole harness consumes
 (utils.rs:269-350: mtx/bdy/coords/rhs exports of MFEM assemblies;
 examples/amg/main.rs:123-140 coefficient datasets) — a genuine FEM
-stiffness matrix with coefficient variation, not a graph Laplacian
-(VERDICT r4 missing #4).
+stiffness matrix with coefficient variation, not a graph Laplacian.
 
 Usage: python tools/make_fem_fixture.py [--side 42] [--out data/fem_square_k100]
 """

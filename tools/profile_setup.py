@@ -1,10 +1,10 @@
-"""Profile the unstructured 262k algebraic setup (VERDICT r2 item #5).
+"""Profile the unstructured 262k algebraic setup on the GPU's host.
 
 Runs AMGSolver.setup under cProfile on the same system/config as
 bench_unstructured.py and prints the top cumulative-time entries plus
 per-phase wall times from the hierarchy logger.
 
-Usage: python tools/profile_setup.py [--side 512] [--no-profile]
+Usage (GPU only): python tools/profile_setup.py [--side 512] [--no-profile]
 """
 
 import argparse
@@ -20,9 +20,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--side", type=int, default=None,
-                    help="grid side (default: 512 on TPU, 64 on CPU — "
-                         "mirrors bench_unstructured.py)")
+    ap.add_argument("--side", type=int, default=512,
+                    help="grid side (mirrors bench_unstructured.py)")
     ap.add_argument("--no-profile", action="store_true")
     ap.add_argument("--top", type=int, default=40)
     args = ap.parse_args()
@@ -32,21 +31,13 @@ def main():
 
     import jax.numpy as jnp
 
-    from tpu_amg.utils.platform import apply_env_platform
-
-    apply_env_platform()
-
-    from bench import unstructured_fem_system
     from tpu_amg.solver import AMGSolver, SolverConfig
-    from tpu_amg.sparse.csr import CSR
+    from tpu_amg.utils.platform import require_gpu
+    from tpu_amg.utils.problems import unstructured_poisson_2d
 
-    if args.side is None:
-        import jax
-
-        args.side = 512 if jax.devices()[0].platform == "tpu" else 64
-
+    print(f"# {require_gpu()['card']}", file=sys.stderr, flush=True)
     t0 = time.perf_counter()
-    a = CSR.from_scipy(unstructured_fem_system(args.side))
+    a = unstructured_poisson_2d(args.side)
     print(f"# system n={a.nrows} nnz={a.nnz} built {time.perf_counter()-t0:.1f}s",
           file=sys.stderr, flush=True)
 
@@ -58,7 +49,6 @@ def main():
         coarsest_dim=1500,
         dtype=jnp.float32,
         dense_threshold=8192,
-        setup_on_host=True,
     )
 
     t0 = time.perf_counter()

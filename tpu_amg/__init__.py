@@ -1,13 +1,13 @@
-"""tpu-amg: a TPU-native adaptive algebraic multigrid framework.
+"""tpu-amg: an adaptive algebraic multigrid framework on JAX, run on a GPU.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the Rust
-``faer-amg`` reference (adaptive smoothed-aggregation + classical AMG
-preconditioning for sparse SPD systems), designed TPU-first:
+A JAX/XLA implementation of the capabilities of the Rust ``faer-amg``
+reference (adaptive smoothed-aggregation + classical AMG preconditioning
+for sparse SPD systems):
 
-- sparse containers are immutable pytrees (CSR for host setup, padded ELL /
-  blocked-ELL for the TPU compute path),
-- the hot SpMV/SpMM path runs as fused XLA gathers or Pallas kernels,
-- smoothers are batched dense solves (MXU-friendly),
+- sparse containers are immutable pytrees (CSR for host setup; DIA, ELL,
+  BSR and dense slabs for the device compute path),
+- the hot SpMV/SpMM path runs as fused XLA slice-FMAs and gathers,
+- smoothers are batched dense solves,
 - hierarchy setup (strength graph, modularity aggregation, tentative +
   smoothed P, Galerkin RAP) runs as host-side graph algorithms + batched
   XLA linear algebra,
@@ -15,25 +15,18 @@ preconditioning for sparse SPD systems), designed TPU-first:
 
 Double precision is enabled at import: the reference library is f64
 throughout (faer ``SparseRowMat<usize, f64>``, reference core.rs:13-17) and
-AMG setup/solve tolerances (1e-12) require it.  TPU hot paths explicitly
-request f32/bf16 where appropriate.
+AMG setup/solve tolerances (1e-12) require it.  Device hot paths
+explicitly request f32/bf16 where appropriate, and every f32 matrix
+product asks for full precision (no TF32).
 """
-
-import os
 
 import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache (compiles dominate setup wall-time on
-# small hosts; set TPU_AMG_NO_COMPILE_CACHE=1 to disable).
-if not os.environ.get("TPU_AMG_NO_COMPILE_CACHE"):
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("TPU_AMG_CACHE_DIR", "/tmp/tpu_amg_jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+from tpu_amg.utils.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from tpu_amg import errors, sparse  # noqa: E402
 

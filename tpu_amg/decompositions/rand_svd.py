@@ -7,8 +7,7 @@ operator with mv/rmv (so it runs matrix-free on an ErrorPropagator for
 near-null extraction — reference smooth_vector_rand_svd,
 adaptivity.rs:248-262).
 
-One fused jitted function: SpMM + tall-skinny QR + small dense SVD are
-all MXU/VPU-friendly.
+One fused jitted function: SpMM + tall-skinny QR + small dense SVD.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ def rand_svd(
     b = a.rmm(q)  # (n, ell) = Aᵀ Q
     # SVD of Bᵀ = (ell, n): Bᵀ = Ũ S Vᵀ  →  A ≈ Q Ũ S Vᵀ
     u_t, s, vh = jnp.linalg.svd(b.T, full_matrices=False)
-    u = q @ u_t
+    u = jnp.matmul(q, u_t, precision=jax.lax.Precision.HIGHEST)
     return u[:, :rank], s[:rank], vh[:rank].T
 
 

@@ -1,7 +1,7 @@
 """Smoothed-aggregation interpolation.
 
 Reference ``AggregationConfig`` + ``smoothed_aggregation``
-(interpolation/mod.rs:62-157, 730-836) rebuilt TPU-first:
+(interpolation/mod.rs:62-157, 730-836) rebuilt batched:
 
 1. The partitioner's coarsening factor is scaled by
    candidate_dimension / block_size (mod.rs:135-137) so every aggregate
@@ -10,7 +10,7 @@ Reference ``AggregationConfig`` + ``smoothed_aggregation``
    (agg_dofs × k) matrix and thin-SVD'd; the first ``candidate_dimension``
    left-singular columns form the tentative-P block, and S·Vᵀ's top rows
    become that aggregate's coarse near-null rows (mod.rs:763-801).
-   **TPU design**: instead of the reference's serial per-aggregate SVD
+   **Batched design**: instead of the reference's serial per-aggregate SVD
    loop, all aggregates are padded to the max aggregate size and solved
    as ONE batched SVD — zero-padded rows do not perturb the row-space, so
    results match the unpadded SVDs exactly (up to sign).

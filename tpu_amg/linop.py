@@ -24,6 +24,10 @@ import numpy as np
 from tpu_amg.sparse.csr import CSR
 from tpu_amg.sparse.ell import ELL
 
+# f32 products on a GPU default to TF32 (~3 decimal digits); every matrix
+# product in the package asks for full precision explicitly.
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class LinearOperator:
     """Mixin/protocol: subclasses provide ``shape``, ``mv``; get the rest."""
@@ -60,7 +64,7 @@ class LinearOperator:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class SparseOperator(LinearOperator):
-    """Square/rectangular sparse operator over an ELL matrix.
+    """Square/rectangular sparse operator over a device-format matrix.
 
     Role of the reference's ``SparseMatOp``/``ParSpmmOp`` (core.rs:56-101,
     par_spmm.rs:135-159).  For rectangular operators used in both
@@ -71,9 +75,6 @@ class SparseOperator(LinearOperator):
 
     ell: ELL
     ell_t: ELL | None = None
-    # optional WELL fast path for solve-loop SpMV (unstructured matrices
-    # on TPU; sparse/well.py).  ELL stays the multi-vector/setup path.
-    well: object | None = None
 
     @property
     def shape(self):
@@ -84,20 +85,9 @@ class SparseOperator(LinearOperator):
         return self.ell.block_size
 
     def mv(self, x):
-        if self.well is not None:
-            return self.well.mv(x)
         return self.ell.mv(x)
 
     def mm(self, xs):
-        # When the mv fast path is WELL and the stored format is a plain
-        # ELL (no MXU slab form), per-column WELL SpMVs beat the ELL
-        # scalar-gather SpMM by ~50x on TPU (VERDICT r2 weak #3: the
-        # adaptivity bootstrap smooths 32-64 near-null candidates
-        # through mm — reference adaptivity.rs:307-390).
-        from tpu_amg.sparse.ell import ELL as _ELL
-
-        if self.well is not None and type(self.ell) is _ELL:
-            return self.well(xs)
         return self.ell.mm(xs)
 
     def rmv(self, x):
@@ -126,31 +116,21 @@ class SparseOperator(LinearOperator):
         prefer_dia: bool = True,
         dia_max_diags: int = 32,
         dia_max_density: float = 3.0,
-        prefer_well: bool | None = None,
-        well_min_rows: int = 4096,
     ):
-        """Pick the fastest device format: DIA when the matrix is
-        diagonal-structured and reasonably dense along its diagonals
-        (structured-grid stencils — gather-free SpMV, ~60x faster than
-        the ELL gather path on TPU); for unstructured-but-banded
-        matrices on TPU, a WELL sidecar (sparse/well.py) takes over the
-        solve-path SpMV (~60x faster than the ELL x-gather); ELL serves
-        everything else plus the multi-vector setup path.
-        ``dia_max_diags`` / ``dia_max_density`` widen the DIA envelope
-        (Galerkin coarse operators of structured grids reach ~125
-        diagonals and are still far better off as slice-FMAs than as
-        gathers)."""
-        mat, well = _pick_format(
-            csr, dtype, prefer_dia, dia_max_diags, dia_max_density,
-            prefer_well, well_min_rows,
+        """Build the operator in the device format :func:`_pick_format`
+        chooses.  ``dia_max_diags`` / ``dia_max_density`` widen the DIA
+        envelope (Galerkin coarse operators of structured grids reach
+        ~125 diagonals and stay slice-FMAs rather than gathers)."""
+        mat = _pick_format(
+            csr, dtype, prefer_dia, dia_max_diags, dia_max_density
         )
         ell_t = None
         if with_transpose:
-            ell_t, _ = _pick_format(
+            ell_t = _pick_format(
                 csr.transpose(), dtype, prefer_dia, dia_max_diags,
-                dia_max_density, False, well_min_rows,
+                dia_max_density,
             )
-        return SparseOperator(ell=mat, ell_t=ell_t, well=well)
+        return SparseOperator(ell=mat, ell_t=ell_t)
 
 
 def _pick_format(
@@ -159,23 +139,19 @@ def _pick_format(
     prefer_dia: bool,
     dia_max_diags: int,
     dia_max_density: float,
-    prefer_well,
-    well_min_rows: int,
 ):
     """Device-format dispatch (the reference's ``dyn_op`` analog,
-    core.rs:88-92, chosen by measured TPU throughput):
+    core.rs:88-92).  The decision depends on the matrix alone, never on
+    the platform:
 
-    1. DIA slice-FMA for diagonal-structured square matrices (fastest,
-       gather-free: 145-240 Gnnz/s measured);
-    2. BandedDense MXU slabs for dense-row window-contained operators
-       (smoothed-SA transfers: R rows hold 100s-1000s of entries and are
-       ~dense within their column window — as ELL gathers a single such
-       apply measured 39 ms; as batched matmuls it is memory-speed);
-    3. WELL windowed-gather Pallas kernel for unstructured banded
-       matrices on TPU (6-7 Gnnz/s vs 0.14 for ELL gathers);
-    4. BSR block gathers for block-structured levels;
-    5. ELL gather fallback (also always kept for the multi-vector
-       setup path when WELL is the mv path).
+    1. DIA slice-FMA for diagonal-structured square matrices (no
+       gathers, one fused loop over the diagonals);
+    2. BandedDense slabs for dense-row window-contained operators and
+       for gather-hostile ones whose hub rows would pad ELL to several
+       times their nnz (smoothed-SA transfers: R rows hold 100s-1000s
+       of entries and are ~dense within their column window);
+    3. BSR block gathers for block-structured square levels;
+    4. ELL gather for everything else.
     """
     if prefer_dia and csr.is_square:
         from tpu_amg.sparse.dia import try_from_csr
@@ -184,90 +160,19 @@ def _pick_format(
         if dia is not None and len(
             dia.offsets
         ) * csr.nrows <= dia_max_density * max(csr.nnz, 1):
-            return dia, None
+            return dia
 
-    if prefer_well is None:
-        prefer_well = (
-            jax.devices()[0].platform == "tpu"
-            and csr.nrows >= well_min_rows
-            and jnp.dtype(dtype).itemsize == 4
-        )
-
-    def try_well():
-        if not prefer_well:
-            return None
-        from tpu_amg.sparse.hybrid import try_hybrid_or_well
-
-        if not csr.is_square:
-            # rectangular grid transfers: nothing in the WELL layout
-            # requires squareness (round-5 probe: the 1.03M x 159k 3-D
-            # prolongation ran 3.5 ms as rect-WELL vs 24.3 ms as the
-            # banded slabs the builder used before, and the 159k x 1.03M
-            # restriction as P^T-through-slabs cost 52.9 ms)
-            from tpu_amg.sparse.well import WELL, WellUnsupported
-
-            mean = csr.nnz / max(csr.nrows, 1)
-            blk = 4 if mean <= 6.0 else 8
-            try:
-                # smoothed-SA restrictions carry hub rows (aggregate
-                # supports to ~320 nnz) past any WELL row capacity
-                # (<=128 slots); let the tails spill to the row-gather
-                # extras path instead of rejecting the whole operator —
-                # the alternative is ~27 ms of x15 slabs per apply
-                # (round-5 attribution, level-0 R at 1M 3-D)
-                return WELL.from_csr(
-                    csr, dtype=dtype, block=blk, max_spill_frac=0.06
-                )
-            except (WellUnsupported, ValueError):
-                return None
-        # hybrid DIA+WELL split when the diagonal mass supports it
-        # (sparse/hybrid.py), plain WELL otherwise
-        return try_hybrid_or_well(csr, dtype=dtype)
-
-    banded_mat = None
     mean_nnz = csr.nnz / max(csr.nrows, 1)
-    # operators whose hub rows pad ELL badly are gather-hostile: a
-    # 262k x 55k smoothed-SA prolongation with max-row 52 / mean 8.3
-    # costs 98 ms as an ELL gather (13.6M padded slots at the scalar-
-    # gather floor) vs ~1 ms as windowed slabs.  Square operators get
-    # first shot at WELL (windowed Pallas gather, ~memory speed); slabs
-    # serve rectangular transfers and WELL-unsupported square levels.
     ell_padded = int(csr.row_nnz().max(initial=0)) * csr.nrows if csr.nnz else 0
-    well = try_well()
     gather_hostile = (
-        csr.nnz > 0
-        and ell_padded > 3.0 * csr.nnz
-        and mean_nnz >= 2.0
-        and (well is None or not csr.is_square)
-        # rectangular operators with a WELL mv-sidecar still build the
-        # slab form: it is the multi-vector (mm/rmv) carrier, and the
-        # ELL alternative for hub-row transfers is memory-hostile
-        # (k = max row nnz pads the whole operator)
+        csr.nnz > 0 and ell_padded > 3.0 * csr.nnz and mean_nnz >= 2.0
     )
-    if csr.is_square and well is not None and mean_nnz >= 24.0:
-        # Square unstructured mid levels (Galerkin coarse operators of
-        # 3-D meshes: ~40-60 nnz/row, RCM'd): the WELL/hybrid windowed
-        # kernel runs them at its stream bound while dense slabs at the
-        # inflation such rows force do not — measured at a 55k/2.6M-nnz
-        # level-1: x15-inflated BandedDense 7.1 ms vs WELL 1.8 ms, and
-        # the round-4 1M V-cycle burned >=90 of its 100 ms in two
-        # slab-formatted mid levels holding 28% of the fine nnz
-        # (VERDICT r4 weak #1).  ELL stays as the multi-vector/setup
-        # carrier; mv takes the WELL sidecar.  Giant levels skip the
-        # ELL carrier (k = max row nnz pads it to ~GB at the 50M-nnz
-        # elasticity fine level — an HBM term that pushed the 1M
-        # elasticity solve 160 MB past device memory) and let the
-        # hybrid serve mm/rmv itself.
-        if csr.nnz <= 20_000_000:
-            return ELL.from_csr(csr, dtype=dtype), well
-        return well, well
     if (mean_nnz >= 24.0 or gather_hostile) and csr.nnz > 0:
         from tpu_amg.sparse.banded import BandedDense, BandedUnsupported
 
-        # generous inflation cap: even 16x-padded dense slabs stream at
-        # memory speed, while the ELL-gather alternative for dense-row
-        # operators is ~3 orders of magnitude slower (MEASURED.md); the
-        # absolute byte cap keeps huge levels from blowing HBM
+        # generous inflation cap (padded slabs still stream contiguously,
+        # where the ELL alternative pads every row to the hub row); the
+        # absolute byte cap keeps huge levels within device memory
         max_inf = min(
             16.0, (1 << 30) / max(csr.nnz * jnp.dtype(dtype).itemsize, 1)
         )
@@ -281,56 +186,32 @@ def _pick_format(
         rb16 = BandedDense._row_blocks16(csr)  # shared across retries
         for rpt_try in dict.fromkeys((rpt, max(rpt // 2, 1), 1)):
             try:
-                banded_mat = BandedDense.from_csr(
+                return BandedDense.from_csr(
                     csr, dtype=dtype, max_inflation=max_inf,
                     rows_per_tile=rpt_try, _rb16=rb16,
                 )
-                break
             except BandedUnsupported as e:
                 err = e
-        if banded_mat is None:
-            # heterogeneous rows (hub rows set every tile's slab width):
-            # row-bucketed stack of parts
-            try:
-                banded_mat = BandedDense.stack_from_csr(
-                    csr, dtype=dtype, max_inflation=max_inf, _rb16=rb16
-                )
-            except BandedUnsupported as e:
-                err = e
-        if banded_mat is None:
-            import logging
-
-            logging.getLogger(__name__).info(
-                "BandedDense rejected for %s (nnz/row %.0f): %s",
-                csr.shape, mean_nnz, err,
+        # heterogeneous rows (hub rows set every tile's slab width):
+        # row-bucketed stack of parts
+        try:
+            return BandedDense.stack_from_csr(
+                csr, dtype=dtype, max_inflation=max_inf, _rb16=rb16
             )
-    if banded_mat is not None:
-        # square heterogeneous operators (Galerkin coarse levels of
-        # unstructured systems) can pass the inflation cap yet still be
-        # far off memory speed — measured at a 55k/2.6M-nnz level-1:
-        # x15-inflated BandedDense 7.1 ms vs WELL 1.8 ms.  Keep the slab
-        # form for mm/rmv (MXU multi-vector path) but take the solve-loop
-        # mv through a WELL sidecar when slabs inflated badly.
-        if csr.is_square:
-            from tpu_amg.sparse.banded import BandedStack
+        except BandedUnsupported as e:
+            err = e
+        import logging
 
-            if isinstance(banded_mat, BandedStack):
-                slots = sum(
-                    int(np.prod(p.slabs.shape)) for p in banded_mat.parts
-                )
-            else:
-                slots = int(np.prod(banded_mat.slabs.shape))
-            if slots > 3.0 * max(csr.nnz, 1):
-                return banded_mat, well
-            return banded_mat, None
-        # rectangular: slabs carry mm/rmv, the rect-WELL carries mv
-        return banded_mat, well
+        logging.getLogger(__name__).info(
+            "BandedDense rejected for %s (nnz/row %.0f): %s",
+            csr.shape, mean_nnz, err,
+        )
 
-    if well is None and csr.block_size > 1 and csr.is_square:
+    if csr.block_size > 1 and csr.is_square:
         from tpu_amg.sparse.bsr import BSR
 
-        return BSR.from_csr(csr, dtype=dtype), None
-    return ELL.from_csr(csr, dtype=dtype), well
+        return BSR.from_csr(csr, dtype=dtype)
+    return ELL.from_csr(csr, dtype=dtype)
 
 
 @jax.tree_util.register_dataclass
@@ -343,16 +224,16 @@ class DenseOperator(LinearOperator):
         return self.mat.shape
 
     def mv(self, x):
-        return self.mat @ x
+        return jnp.matmul(self.mat, x, precision=HIGHEST)
 
     def mm(self, xs):
-        return self.mat @ xs
+        return jnp.matmul(self.mat, xs, precision=HIGHEST)
 
     def rmv(self, x):
-        return self.mat.T @ x
+        return jnp.matmul(self.mat.T, x, precision=HIGHEST)
 
     def rmm(self, xs):
-        return self.mat.T @ xs
+        return jnp.matmul(self.mat.T, xs, precision=HIGHEST)
 
 
 @jax.tree_util.register_dataclass

@@ -1,1 +1,1 @@
-"""Compute kernels: Pallas TPU kernels and native (C++) host kernels."""
+"""Compute kernels: tall-skinny QR and native (C++) host kernels."""

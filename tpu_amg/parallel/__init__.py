@@ -1,10 +1,10 @@
 """Multi-chip/multi-host distribution over `jax.sharding` meshes.
 
 The reference's only parallelism is a shared-memory rayon pool
-(SURVEY.md §2.1); the TPU-native equivalent is SPMD over a device mesh:
+(SURVEY.md §2.1); the equivalent here is SPMD over a device mesh:
 each level's ELL matrix is row-partitioned (P('x', None)), vectors are
 row-sharded (P('x')), and XLA inserts the collectives (the gather of
-x[cols] becomes an all-gather over ICI; CG dot products become psums).
+x[cols] becomes an all-gather; CG dot products become psums).
 A manual shard_map halo-exchange SpMV (`halo_spmv`) covers the
 bandwidth-optimal path for banded orderings.
 """

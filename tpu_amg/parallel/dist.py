@@ -75,9 +75,8 @@ def shard_ell(ell: ELL, mesh: Mesh, axis="x") -> ELL:
     ``axis`` may be a single mesh-axis name or a tuple of names — the
     tuple form shards rows over the *product* of those axes (full-mesh
     fine levels), while a sub-tuple shards over a sub-mesh and
-    replicates across the rest: the TPU analog of the reference's
-    coarse-grid redistribution as levels shrink (SURVEY.md §5
-    long-context row; BASELINE.json north star).
+    replicates across the rest: the analog of coarse-grid
+    redistribution as levels shrink (SURVEY.md §5).
     """
     if not hasattr(ell, "cols"):
         raise TypeError(
@@ -110,22 +109,14 @@ def replicate(tree, mesh: Mesh):
     )
 
 
-def try_shard_halo(mat, mesh: Mesh, axis="x", prefer_well: bool | None = None):
+def try_shard_halo(mat, mesh: Mesh, axis="x"):
     """Halo-sharded version of an ELL/DIA matrix, or None when the band
     assumption (or divisibility) fails — callers fall back to the
     all-gather path.  This is what makes ppermute halo exchange the
-    *production* distributed SpMV (BASELINE.json north star) rather
-    than a standalone benchmark.
-
-    Square banded ELL matrices large enough for the windowed-gather
-    kernel get the HaloWELL form (parallel/halo.py): per-shard WELL
-    built from the row-local band, ring halo exchange + local Pallas
-    SpMV — the distributed production unstructured path.  HaloELL's
-    XLA-gather body (~50x slower per nnz on TPU) remains the fallback.
+    *production* distributed SpMV rather than a standalone benchmark:
+    DIA becomes HaloDIA (sharded slice-FMAs), ELL becomes HaloELL (local
+    gather over the halo buffer).
     """
-    from tpu_amg.parallel.halo import HaloWELL
-    from tpu_amg.sparse.well import WellUnsupported
-
     if isinstance(axis, (tuple, list)):
         if len(axis) != 1:
             return None
@@ -134,64 +125,10 @@ def try_shard_halo(mat, mesh: Mesh, axis="x", prefer_well: bool | None = None):
         if isinstance(mat, DIA):
             return HaloDIA.from_dia(mat, mesh, axis)
         if isinstance(mat, ELL):
-            if prefer_well is None:
-                prefer_well = (
-                    mat.shape[0] == mat.shape[1]
-                    and mat.nrows >= 4096
-                    and jnp.dtype(mat.dtype).itemsize <= 4
-                    and mat.nrows % mesh.shape[axis] == 0
-                )
-            if prefer_well:
-                try:
-                    return HaloWELL.from_csr(
-                        mat.to_csr(), mesh, axis, dtype=mat.dtype
-                    )
-                except (ValueError, WellUnsupported):
-                    pass
             return HaloELL.from_ell(mat, mesh, axis)
     except ValueError:
         return None
     return None
-
-
-def try_shard_halo_op(op: SparseOperator, mesh: Mesh, axis="x"):
-    """Best halo form for a SQUARE SparseOperator, matching the
-    single-chip production format rather than degrading it
-    (VERDICT r4 missing #2): HybridDiaWell → HaloHybrid, WELL →
-    HaloWELL, DIA → HaloDIA, banded ELL → HaloELL.  Returns None when
-    no halo form fits (callers replicate or row-shard)."""
-    from tpu_amg.parallel.halo import HaloHybrid, HaloWELL
-    from tpu_amg.sparse.hybrid import HybridDiaWell
-    from tpu_amg.sparse.well import WELL, WellUnsupported
-
-    if isinstance(axis, (tuple, list)):
-        if len(axis) != 1:
-            return None
-        axis = axis[0]
-    n_dev = mesh.shape[axis]
-    mat, well = op.ell, op.well
-    if (
-        well is not None
-        and mat.shape[0] == mat.shape[1]
-        and mat.shape[0] % n_dev == 0
-        and hasattr(mat, "to_csr")
-    ):
-        csr = mat.to_csr()
-        if isinstance(well, HybridDiaWell):
-            try:
-                return HaloHybrid.from_csr(
-                    csr, mesh, axis, dtype=well.dtype
-                )
-            except (WellUnsupported, ValueError):
-                pass
-        if isinstance(well, (WELL, HybridDiaWell)):
-            try:
-                return HaloWELL.from_csr(
-                    csr, mesh, axis, dtype=well.dtype
-                )
-            except (WellUnsupported, ValueError):
-                pass
-    return try_shard_halo(mat, mesh, axis)
 
 
 def shard_operator(
@@ -204,7 +141,7 @@ def shard_operator(
     gather path."""
     ell = None
     if use_halo:
-        ell = try_shard_halo_op(op, mesh, axis)
+        ell = try_shard_halo(op.ell, mesh, axis)
     if ell is None:
         ell = shard_ell(op.ell, mesh, axis)
     ell_t = None
@@ -262,7 +199,7 @@ def _shard_block_smoother(
 def _as_ell_operator(op):
     """Normalize single-chip fast formats back to ELL for sharding.
 
-    BandedDense (MXU dense slabs) and R-as-Pᵀ TransposeOperator views
+    BandedDense (dense slabs) and R-as-Pᵀ TransposeOperator views
     are single-chip layouts; the distributed path re-derives the CSR and
     shards it as (halo) ELL."""
     from tpu_amg.linop import TransposeOperator
@@ -301,8 +238,8 @@ def shard_multigrid(
 
     With ``use_halo`` (default), banded level operators and grid
     transfers become ppermute halo-exchange forms (HaloDIA/HaloELL) —
-    only the halo slab crosses ICI per SpMV instead of a full
-    all-gather of the vector.
+    only the halo slab crosses between devices per SpMV instead of a
+    full all-gather of the vector.
     """
     n_dev = mesh.shape[axis]
     new_levels = []
@@ -314,7 +251,7 @@ def shard_multigrid(
             and n >= replicate_below
             and n % n_dev == 0
         ):
-            h = try_shard_halo_op(level.a, mesh, axis) if use_halo else None
+            h = try_shard_halo(level.a.ell, mesh, axis) if use_halo else None
             if h is not None:
                 a = SparseOperator(ell=h)
             elif isinstance(level.a.ell, ELL):

@@ -5,7 +5,7 @@ The bandwidth-optimal distributed SpMV for banded orderings (structured
 grids, BFS/RCM-ordered FEM meshes): instead of all-gathering the whole
 vector (the default XLA lowering of ``x[cols]`` on a sharded x), each
 device exchanges only a fixed-width halo slab with its ring neighbors
-over ICI (``jax.lax.ppermute``), then computes from the local
+(``jax.lax.ppermute``), then computes from the local
 [left-halo | own | right-halo] buffer.
 
 This is the BASELINE.json north-star communication pattern ("halo vector
@@ -177,7 +177,7 @@ class HaloELL:
 @dataclasses.dataclass(frozen=True)
 class HaloDIA:
     """Column-sharded DIA (square): per-shard slice-FMA over the halo
-    buffer — zero gathers, the distributed TPU fast path for
+    buffer — zero gathers, the distributed fast path for
     diagonal-structured levels."""
 
     data: jax.Array  # (n_diags, n), sharded P(None, axis)
@@ -253,7 +253,7 @@ def _ell_shard(data, cols_local, x, *, halo, axis, n_devices):
     gathered = jnp.take(xbuf, cols_local, axis=0)
     if x.ndim == 1:
         return jnp.sum(data * gathered, axis=1)
-    return jnp.einsum("rk,rkm->rm", data, gathered)
+    return jnp.einsum("rk,rkm->rm", data, gathered, precision=jax.lax.Precision.HIGHEST)
 
 
 def _dia_shard(data, x, *, offsets, halo, axis, n_devices, n_loc):
@@ -299,482 +299,3 @@ def halo_spmv(h, x: jax.Array) -> jax.Array:
         in_specs=(P(h.axis, None), P(h.axis, None), vec_spec),
         out_specs=vec_spec,
     )(h.data, h.cols_local, x)
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class HaloWELL:
-    """Row-partitioned WELL (sparse/well.py) — the distributed form of
-    the production unstructured SpMV.
-
-    Each device owns n/D contiguous rows and holds a WELL built from its
-    row block with columns shifted into the local halo-buffer domain
-    [0, n_loc + 2·halo); apply = ring halo exchange (two ppermutes) +
-    the local Pallas windowed-gather kernel.  This closes the round-3
-    gap where multi-chip solves of unstructured systems silently fell
-    back to the XLA-gather ELL path (~50x cliff): the same banded-
-    ordering invariant that makes WELL windows work (RCM) is what bounds
-    the halo width, so any WELL-eligible matrix is HaloWELL-eligible
-    whenever its band fits the per-shard column window.
-
-    All per-shard WELL builds share their static geometry (rows_per_vrow
-    forced to the global choice, tile counts padded to the max, group/
-    pass/merge counts maxed) so the stacked arrays shard over the mesh
-    axis and the kernel compiles once.
-    """
-
-    # stacked per-shard WELL arrays, leading axis = device
-    q: jax.Array  # (D, T)
-    qv: jax.Array  # (D, T*F)
-    ngv: jax.Array  # (D, T*F)
-    data: jax.Array  # (D, T, M, 128)
-    w: jax.Array  # (D, T, M, 128)
-    rts: jax.Array  # (D, T, M, B)
-    extra_rows: jax.Array  # (D, U)
-    extra_seg: jax.Array  # (D, E)
-    extra_cols: jax.Array  # (D, E)
-    extra_vals: jax.Array  # (D, E)
-    # in-kernel extras slabs (zeros for shards without spills)
-    ex_tw: jax.Array  # (D, T, 8, 128)
-    ex_q: jax.Array  # (D, T)
-    shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-    nnz: int = dataclasses.field(metadata=dict(static=True))
-    halo: int = dataclasses.field(metadata=dict(static=True))
-    axis: str = dataclasses.field(metadata=dict(static=True))
-    mesh: Mesh = dataclasses.field(metadata=dict(static=True))
-    # shared WELL statics (see sparse/well.py)
-    block: int = dataclasses.field(metadata=dict(static=True))
-    win_rows: int = dataclasses.field(metadata=dict(static=True))
-    x2d_rows: int = dataclasses.field(metadata=dict(static=True))
-    rows_per_vrow: int = dataclasses.field(metadata=dict(static=True))
-    vregs_per_tile: int = dataclasses.field(metadata=dict(static=True))
-    n_groups: int = dataclasses.field(metadata=dict(static=True))
-    n_passes: int = dataclasses.field(metadata=dict(static=True))
-    merge_rounds: int = dataclasses.field(metadata=dict(static=True))
-    idroute: bool = dataclasses.field(
-        default=False, metadata=dict(static=True)
-    )
-    bcols: int = dataclasses.field(default=0, metadata=dict(static=True))
-    n_ex_groups: int = dataclasses.field(
-        default=0, metadata=dict(static=True)
-    )
-    up4: int = dataclasses.field(default=-1, metadata=dict(static=True))
-    up2: int = dataclasses.field(default=-1, metadata=dict(static=True))
-    up1: int = dataclasses.field(default=-1, metadata=dict(static=True))
-    block_size: int = dataclasses.field(default=1, metadata=dict(static=True))
-
-    @property
-    def nrows(self):
-        return self.shape[0]
-
-    @property
-    def ncols(self):
-        return self.shape[1]
-
-    @property
-    def n_devices(self):
-        return self.mesh.shape[self.axis]
-
-    @property
-    def n_loc_rows(self):
-        return self.shape[0] // self.n_devices
-
-    n_loc_cols = n_loc_rows
-
-    @property
-    def dtype(self):
-        return self.data.dtype
-
-    def _local_well(self, d_arrays):
-        """Assemble the shard-local WELL from the per-device array slice
-        (traced inside shard_map)."""
-        from tpu_amg.sparse.well import WELL
-
-        (q, qv, ngv, data, w, rts, ex_r, ex_s, ex_c, ex_v,
-         ex_tw, ex_q) = d_arrays
-        return WELL(
-            q=q, qv=qv, ngv=ngv,
-            gt=jnp.zeros_like(q), pt=jnp.zeros_like(q),
-            data=data, w=w, rts=rts,
-            extra_rows=ex_r, extra_seg=ex_s, extra_cols=ex_c,
-            extra_vals=ex_v,
-            shape=(self.n_loc_rows, self.n_loc_cols + 2 * self.halo),
-            nnz=0,
-            block=self.block,
-            win_rows=self.win_rows,
-            x2d_rows=self.x2d_rows,
-            rows_per_vrow=self.rows_per_vrow,
-            vregs_per_tile=self.vregs_per_tile,
-            n_groups=self.n_groups,
-            n_passes=self.n_passes,
-            merge_rounds=self.merge_rounds,
-            ex_tw=ex_tw if self.n_ex_groups else None,
-            ex_q=ex_q if self.n_ex_groups else None,
-            n_ex_groups=self.n_ex_groups,
-            idroute=self.idroute,
-            bcols=self.bcols,
-            up4=self.up4, up2=self.up2, up1=self.up1,
-            block_size=self.block_size,
-        )
-
-    @staticmethod
-    def from_csr(
-        csr, mesh: Mesh, axis: str = "x", dtype=None, halo: int | None = None,
-        block: int | None = None,
-    ) -> "HaloWELL":
-        """Build from a host CSR; raises ``ValueError`` when the row
-        band does not fit a halo window, ``WellUnsupported`` when a
-        shard's block is not WELL-representable."""
-        import jax.numpy as _jnp
-
-        from tpu_amg.parallel.multihost import global_put
-        from tpu_amg.sparse.csr import CSR
-        from tpu_amg.sparse.well import WELL
-
-        dtype = dtype or _jnp.float32
-        n_dev = mesh.shape[axis]
-        nrows, ncols = csr.shape
-        _check_divisible(nrows, ncols, n_dev)
-        n_loc = nrows // n_dev
-
-        indptr = np.asarray(csr.indptr)
-        indices = np.asarray(csr.indices)
-        vals = np.asarray(csr.data)
-        if block is None:
-            # same adaptive lane-block rule as the single-chip builders
-            mean = csr.nnz / max(nrows, 1)
-            block = 4 if mean <= 6.0 else 8
-        rows = np.repeat(np.arange(nrows, dtype=np.int64), np.diff(indptr))
-        window_start = (rows // n_loc) * n_loc
-        offset = indices - window_start  # want [-halo, n_loc + halo)
-        lo = offset.min(initial=0)
-        hi = offset.max(initial=0) - (n_loc - 1)
-        needed = int(max(-lo, hi, 0))
-        if halo is None:
-            halo = needed
-        # 128-align the halo so every shard's buffer→x2d reshape puts
-        # column c at lane (c + halo) % 128 consistently
-        halo = -(-halo // 128) * 128
-        if needed > halo or halo > n_loc:
-            raise ValueError(
-                f"band assumption violated: needs halo {needed}, "
-                f"local column window {n_loc}"
-            )
-
-        # per-shard local CSR blocks in buffer coordinates
-        shard_of = rows // n_loc
-        # identity-route must be decided GLOBALLY (the rts encodings of
-        # the two layouts differ) — use the full-matrix criterion
-        nnz_row_g = np.diff(indptr)
-        from tpu_amg.sparse.well import MAX_OV_ROUNDS
-        over_cap = np.maximum(
-            nnz_row_g - (1 + MAX_OV_ROUNDS) * block, 0
-        ).sum()
-        idroute = bool(over_cap <= 0.25 * 0.02 * csr.nnz)
-        builds = []
-        g_common = None
-        split_common = None
-        for d in range(n_dev):
-            sel = shard_of == d
-            local = CSR.from_coo(
-                rows[sel] - d * n_loc,
-                indices[sel] - d * n_loc + halo,
-                vals[sel],
-                (n_loc, n_loc + 2 * halo),
-            )
-            wl = WELL.from_csr(
-                local, dtype=dtype, vregs_per_tile=32, block=block,
-                rows_per_vrow=g_common, idroute=idroute,
-                # shard spills ride the per-tile in-kernel extras table
-                # (idroute) — XLA gather/scatter of even a few spills
-                # costs a fixed ~85 us PER OP (sparse/well.py extras
-                # section); anything the table cannot hold stays on the
-                # padded legacy path.  Shards forced to shard 0's
-                # rows_per_vrow can spill a little more than an auto-g
-                # build — allow it (the array path handles any count)
-                inkernel_extras=True,
-                max_spill_frac=0.08,
-                unit_split=split_common,
-                # stacked shards share one static kernel; the sparse
-                # window-group lists are per-shard x2d-absolute and are
-                # not carried through the halo stacking yet
-                sparse_groups=False,
-            )
-            if g_common is None:
-                g_common = wl.rows_per_vrow
-                if wl.idroute and wl.up4 >= 0:
-                    split_common = (wl.up4, wl.up2, wl.up1)
-                if d > 0:  # shouldn't happen (d=0 sets it)
-                    raise AssertionError
-            builds.append(wl)
-
-        # pad to common tile count / extras sizes, take max statics
-        t_max = max(b.data.shape[0] for b in builds)
-        e_max = max(b.extra_cols.shape[0] for b in builds)
-        u_max = max(b.extra_rows.shape[0] for b in builds)
-        f = builds[0].vregs_per_tile
-        m = f * 8
-        bpv = builds[0].blocks_per_vrow
-
-        def pad_t(a, t_have, fill=0):
-            pad = [(0, t_max - t_have)] + [(0, 0)] * (a.ndim - 1)
-            return np.pad(np.asarray(a), pad, constant_values=fill)
-
-        def stack(field, fill=0, elen=None):
-            outs = []
-            for b in builds:
-                a = np.asarray(getattr(b, field))
-                if field in ("q",):
-                    outs.append(pad_t(a, a.shape[0], fill))
-                elif field in ("qv", "ngv"):
-                    pad_val = 1 if field == "ngv" else 0
-                    outs.append(np.pad(a, (0, t_max * f - a.shape[0]),
-                                       constant_values=pad_val))
-                elif field.startswith("extra"):
-                    outs.append(
-                        np.pad(a, (0, elen - a.shape[0]),
-                               constant_values=fill)
-                    )
-                else:
-                    outs.append(pad_t(a, a.shape[0], fill))
-            return np.stack(outs)
-
-        x2d_rows = max(b.x2d_rows for b in builds)
-        n_ex_g = max(b.n_ex_groups for b in builds)
-        ex_tw_np = np.zeros((n_dev, t_max, 8, 128), dtype=np.int32)
-        ex_q_np = np.zeros((n_dev, t_max), dtype=np.int32)
-        if n_ex_g:
-            for d, b in enumerate(builds):
-                if b.ex_tw is not None:
-                    tb = np.asarray(b.ex_tw)
-                    ex_tw_np[d, : tb.shape[0]] = tb
-                    ex_q_np[d, : b.ex_q.shape[0]] = np.asarray(b.ex_q)
-        hw = HaloWELL(
-            q=_jnp.asarray(stack("q"), _jnp.int32),
-            qv=_jnp.asarray(stack("qv"), _jnp.int32),
-            ngv=_jnp.asarray(stack("ngv"), _jnp.int32),
-            data=_jnp.asarray(stack("data"), dtype),
-            w=_jnp.asarray(stack("w"), _jnp.int32),
-            rts=_jnp.asarray(stack("rts"), _jnp.int32),
-            # pad rows out of range: the scatter runs mode="drop" with
-            # a uniqueness promise, so padded entries must not collide
-            # with real rows (their segment sums are 0 anyway)
-            extra_rows=_jnp.asarray(
-                stack("extra_rows", fill=n_loc, elen=u_max), _jnp.int32),
-            extra_seg=_jnp.asarray(
-                stack("extra_seg", fill=max(u_max - 1, 0), elen=e_max),
-                _jnp.int32),
-            extra_cols=_jnp.asarray(
-                stack("extra_cols", fill=0, elen=e_max), _jnp.int32),
-            extra_vals=_jnp.asarray(
-                stack("extra_vals", fill=0, elen=e_max), dtype),
-            ex_tw=_jnp.asarray(ex_tw_np),
-            ex_q=_jnp.asarray(ex_q_np),
-            shape=csr.shape,
-            nnz=csr.nnz,
-            halo=halo,
-            axis=axis,
-            mesh=mesh,
-            block=builds[0].block,
-            win_rows=max(b.win_rows for b in builds),
-            x2d_rows=x2d_rows,
-            rows_per_vrow=g_common,
-            vregs_per_tile=f,
-            n_groups=max(b.n_groups for b in builds),
-            n_passes=max(b.n_passes for b in builds),
-            merge_rounds=max(b.merge_rounds for b in builds),
-            idroute=idroute,
-            bcols=builds[0].bcols,
-            n_ex_groups=n_ex_g,
-            up4=builds[0].up4, up2=builds[0].up2, up1=builds[0].up1,
-            block_size=csr.block_size,
-        )
-        # shard the stacked arrays over the mesh axis
-        sharding = NamedSharding(mesh, P(axis))
-        put = lambda a: global_put(a, sharding)
-        return dataclasses.replace(
-            hw,
-            q=put(hw.q), qv=put(hw.qv), ngv=put(hw.ngv),
-            data=put(hw.data), w=put(hw.w),
-            rts=put(hw.rts), extra_rows=put(hw.extra_rows),
-            extra_seg=put(hw.extra_seg), extra_cols=put(hw.extra_cols),
-            extra_vals=put(hw.extra_vals), ex_tw=put(hw.ex_tw),
-            ex_q=put(hw.ex_q),
-        )
-
-    def mv(self, x: jax.Array) -> jax.Array:
-        return halo_well_spmv(self, x)
-
-    def mm(self, xs: jax.Array) -> jax.Array:
-        if xs.ndim == 1:
-            return self.mv(xs)
-        return jnp.stack(
-            [self.mv(xs[:, j]) for j in range(xs.shape[1])], 1
-        )
-
-    def __call__(self, x):
-        return self.mm(x) if x.ndim > 1 else self.mv(x)
-
-
-def _well_shard(q, qv, ngv, data, w, rts, ex_r, ex_s, ex_c, ex_v,
-                ex_tw, ex_q, x, *, hw):
-    """Per-shard HaloWELL body: ring halo exchange + local WELL SpMV."""
-    from tpu_amg.ops.well_pallas import well_spmv
-
-    xbuf = _ring_exchange(x, hw.halo, hw.axis, hw.n_devices)
-    local = hw._local_well(
-        (q[0], qv[0], ngv[0], data[0], w[0], rts[0],
-         ex_r[0], ex_s[0], ex_c[0], ex_v[0], ex_tw[0], ex_q[0])
-    )
-    return well_spmv(local, xbuf)
-
-
-@jax.jit
-def halo_well_spmv(hw: "HaloWELL", x: jax.Array) -> jax.Array:
-    """y = A @ x with x row-sharded over ``hw.axis`` on ``hw.mesh``."""
-    from functools import partial as _partial
-
-    body = _partial(_well_shard, hw=hw)
-    vec_spec = P(hw.axis)
-    return jax.shard_map(
-        body,
-        mesh=hw.mesh,
-        in_specs=(
-            P(hw.axis), P(hw.axis), P(hw.axis), P(hw.axis), P(hw.axis),
-            P(hw.axis), P(hw.axis), P(hw.axis), P(hw.axis), P(hw.axis),
-            P(hw.axis), P(hw.axis), vec_spec,
-        ),
-        out_specs=vec_spec,
-        # pallas_call can't declare per-axis varying outputs yet
-        check_vma=False,
-    )(hw.q, hw.qv, hw.ngv, hw.data, hw.w, hw.rts, hw.extra_rows,
-      hw.extra_seg, hw.extra_cols, hw.extra_vals, hw.ex_tw, hw.ex_q, x)
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class HaloHybrid:
-    """Distributed form of the production unstructured format
-    (sparse/hybrid.py HybridDiaWell): dominant diagonals as a HaloDIA
-    (sharded slice-FMA streams) + the scattered remainder as a HaloWELL
-    (per-shard windowed-gather Pallas kernel), each with its own ring
-    halo exchange.  Closes VERDICT r4 missing #2: the single-chip
-    numbers were earned by the hybrid split and the sharded fine level
-    previously fell back to a plain block-8 WELL (or replication).
-
-    The two exchanges are both ICI ppermutes of O(halo) slabs; XLA
-    overlaps them with the independent local compute.
-    """
-
-    dia: HaloDIA
-    well: HaloWELL
-    shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-    nnz: int = dataclasses.field(metadata=dict(static=True))
-    block_size: int = dataclasses.field(default=1, metadata=dict(static=True))
-
-    @property
-    def nrows(self):
-        return self.shape[0]
-
-    @property
-    def ncols(self):
-        return self.shape[1]
-
-    @property
-    def dtype(self):
-        return self.well.dtype
-
-    @property
-    def halo(self):
-        return max(self.dia.halo, self.well.halo)
-
-    @property
-    def mesh(self):
-        return self.well.mesh
-
-    @property
-    def axis(self):
-        return self.well.axis
-
-    @property
-    def n_devices(self):
-        return self.well.n_devices
-
-    def mv(self, x: jax.Array) -> jax.Array:
-        return self.dia.mv(x) + self.well.mv(x)
-
-    def mm(self, xs: jax.Array) -> jax.Array:
-        if xs.ndim == 1:
-            return self.mv(xs)
-        return jnp.stack(
-            [self.mv(xs[:, j]) for j in range(xs.shape[1])], 1
-        )
-
-    def __call__(self, x):
-        return self.mm(x) if x.ndim > 1 else self.mv(x)
-
-    def __repr__(self):
-        return (
-            f"HaloHybrid(shape={self.shape}, nnz={self.nnz}, "
-            f"devices={self.n_devices}, dia={len(self.dia.offsets)} diags "
-            f"({self.dia.nnz / max(self.nnz, 1):.0%} nnz), "
-            f"well_halo={self.well.halo})"
-        )
-
-    @staticmethod
-    def from_csr(
-        csr, mesh: Mesh, axis: str = "x", dtype=None,
-        fill_min: float = 0.10, max_diags: int = 12, min_cover: float = 0.12,
-    ) -> "HaloHybrid":
-        """Same dominant-diagonal split as HybridDiaWell.from_csr
-        (sparse/hybrid.py), each part sharded in its halo form.  Raises
-        WellUnsupported / ValueError when the split or the band
-        assumption fails — callers fall back to plain HaloWELL."""
-        import jax.numpy as _jnp
-
-        from tpu_amg.sparse.csr import CSR
-        from tpu_amg.sparse.dia import DIA
-        from tpu_amg.sparse.well import WellUnsupported
-
-        dtype = dtype or _jnp.float32
-        if csr.shape[0] != csr.shape[1]:
-            raise WellUnsupported("hybrid split needs a square matrix")
-        n = csr.nrows
-        rows, cols, vals = csr.coo()
-        offs = cols - rows
-        uniq, inv, counts = np.unique(
-            offs, return_inverse=True, return_counts=True
-        )
-        order = np.argsort(-counts)
-        sel = order[:max_diags]
-        sel = sel[counts[sel] >= fill_min * n]
-        cover = counts[sel].sum() / max(csr.nnz, 1)
-        if len(sel) == 0 or cover < min_cover:
-            raise WellUnsupported(
-                f"dominant diagonals cover only {cover:.0%} of nnz"
-            )
-        sel_offsets = np.sort(uniq[sel])
-        on_dia = np.isin(inv, sel)
-        dia_data = np.zeros((len(sel_offsets), n))
-        d_idx = np.searchsorted(sel_offsets, offs[on_dia])
-        dia_data[d_idx, rows[on_dia]] = vals[on_dia]
-        dia = DIA(
-            data=jnp.asarray(dia_data, dtype=dtype),
-            offsets=tuple(int(o) for o in sel_offsets),
-            shape=csr.shape,
-            nnz=int(on_dia.sum()),
-            block_size=csr.block_size,
-        )
-        rest = CSR.from_coo(
-            rows[~on_dia], cols[~on_dia], vals[~on_dia], csr.shape
-        ).with_block_size(csr.block_size)
-        mean_rest = rest.nnz / max(n, 1)
-        hw = HaloWELL.from_csr(
-            rest, mesh, axis, dtype=dtype,
-            block=4 if mean_rest <= 8.0 else 8,
-        )
-        hd = HaloDIA.from_dia(dia, mesh, axis)
-        return HaloHybrid(
-            dia=hd, well=hw, shape=csr.shape, nnz=csr.nnz,
-            block_size=csr.block_size,
-        )

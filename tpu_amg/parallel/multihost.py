@@ -1,16 +1,17 @@
 """Multi-host (multi-process) distribution scaffolding.
 
-The reference is single-host shared-memory only (SURVEY.md §2.1); the
-TPU-native scaling story spans pod slices: one process per host, ICI
-collectives inside a slice, DCN across slices.  This module provides the
-process-aware pieces:
+The reference is single-host shared-memory only (SURVEY.md §2.1); here
+the scaling story spans hosts: one process per host, fast collectives
+among a host's local devices, the network between hosts.  This module
+provides the process-aware pieces:
 
 - :func:`initialize` — ``jax.distributed.initialize`` wrapper with
   env-var defaults and single-process no-op,
-- :func:`pod_mesh` — a (dcn, ici) device mesh whose row-ordering keeps
-  ICI neighbors contiguous, so the halo ring (parallel/halo.py) crosses
-  DCN only at process boundaries (one slab per boundary per SpMV — the
-  bandwidth-optimal layout for a row-partitioned hierarchy),
+- :func:`process_mesh` — a (process, local) device mesh whose
+  row-ordering keeps a process's devices contiguous, so the halo ring
+  (parallel/halo.py) leaves a host only at process boundaries (one slab
+  per boundary per SpMV — the bandwidth-optimal layout for a
+  row-partitioned hierarchy),
 - :func:`global_put` — multihost-safe device placement (single-process
   ``device_put`` falls back transparently).
 
@@ -20,7 +21,7 @@ Launch recipe (N hosts, one process each)::
     python train.py  # inside, before any jax computation:
     #   from tpu_amg.parallel import multihost
     #   multihost.initialize("host0:8476", num_processes=N, process_id=i)
-    #   mesh = multihost.pod_mesh()
+    #   mesh = multihost.process_mesh()
 
     # CPU rehearsal (2 processes x 4 virtual devices, same code path):
     JAX_PLATFORMS=cpu python -m tests.multihost_worker 0 2 &
@@ -49,8 +50,8 @@ def initialize(
 
     Arguments default to the standard env vars
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``); on TPU pods with standard provisioning all three
-    may be None and jax autodetects them.
+    ``JAX_PROCESS_ID``); on clusters that jax autodetects all three may
+    be None.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -71,14 +72,14 @@ def initialize(
     )
 
 
-def pod_mesh(ici_axis: str = "x", dcn_axis: str = "dcn"):
-    """(n_processes, devices_per_process) mesh: ``dcn_axis`` over
-    processes, ``ici_axis`` over each process's local devices.
+def process_mesh(local_axis: str = "x", process_axis: str = "proc"):
+    """(n_processes, devices_per_process) mesh: ``process_axis`` over
+    processes, ``local_axis`` over each process's local devices.
 
-    Row-shard solver state over ``(dcn_axis, ici_axis)`` (pass the tuple
-    as the axis to shard_ell/shard_vector): consecutive row blocks land
-    on ICI neighbors and the halo ring crosses DCN exactly once per
-    process boundary.
+    Row-shard solver state over ``(process_axis, local_axis)`` (pass the
+    tuple as the axis to shard_ell/shard_vector): consecutive row blocks
+    land on devices of one host and the halo ring leaves a host exactly
+    once per process boundary.
     """
     n_proc = jax.process_count()
     devices = np.array(jax.devices())
@@ -87,7 +88,7 @@ def pod_mesh(ici_axis: str = "x", dcn_axis: str = "dcn"):
             f"{len(devices)} devices not divisible by {n_proc} processes"
         )
     return jax.sharding.Mesh(
-        devices.reshape(n_proc, -1), (dcn_axis, ici_axis)
+        devices.reshape(n_proc, -1), (process_axis, local_axis)
     )
 
 

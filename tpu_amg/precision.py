@@ -1,18 +1,16 @@
-"""Mixed-precision preconditioning (TPU-native; beyond the reference).
+"""Mixed-precision preconditioning (beyond the reference).
 
-Every hot kernel in the V-cycle is memory-bound (MEASURED.md): DIA
+Every hot kernel in the V-cycle is memory-bound: DIA
 slice-FMAs stream `n_diags x n` values per apply, BandedDense slabs
 stream their padded blocks, dense coarse levels stream whole matrices.
-Storing those value streams in bfloat16 halves the HBM traffic — the
+Storing those value streams in bfloat16 halves the memory traffic — the
 preconditioner remains a *fixed* linear operator whatever precision it
 is evaluated in, so PCG convergence is perturbed only through the
 quality of M as an A⁻¹ approximation (a bf16 rounding of an AMG cycle
 is far smaller than the cycle's own approximation error).  The outer
 Krylov loop (residuals, dot products, AXPYs) stays in f32/f64.
 
-The reference is f64-only end to end (faer `f64` throughout); on TPU
-the native matmul precision is bf16 with f32 accumulation, and the VPU
-upconverts bf16 loads for free, so this is the idiomatic fast path.
+The reference is f64-only end to end (faer `f64` throughout).
 
 Two modes (``cast_preconditioner``):
 
@@ -23,12 +21,7 @@ Two modes (``cast_preconditioner``):
   zero accuracy cost.
 - ``"bf16"``: vectors too — the :class:`MixedPrecision` wrapper casts
   the residual to bf16 on entry and the correction back on exit, so
-  x/y streams also halve and dense levels hit the MXU's native
-  bf16×bf16 mode.
-
-WELL operators (sparse/well.py) are kept as f32 islands: the Pallas
-kernel's sublane/lane gather tables are built for 32-bit lanes, and its
-input is re-cast at the island boundary in full-bf16 mode.
+  x/y streams also halve.
 """
 
 from __future__ import annotations
@@ -40,29 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_amg.linop import LinearOperator, SparseOperator
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class _F32Island:
-    """Wraps a WELL (or any .mv object) so its gathers/FMAs run in f32
-    while the surrounding cycle runs in a lower precision.  The wrapped
-    operator's VALUE stream may itself be bf16 (WELL.astype_values) —
-    the island only pins the vector/compute dtype."""
-
-    inner: Any
-
-    @property
-    def dtype(self):
-        return self.inner.dtype
-
-    @property
-    def shape(self):
-        return self.inner.shape
-
-    def mv(self, x):
-        return self.inner.mv(x.astype(jnp.float32)).astype(x.dtype)
+from tpu_amg.linop import LinearOperator
 
 
 def _cast_leaf(x, dtype):
@@ -76,25 +47,11 @@ def _cast_leaf(x, dtype):
 def cast_operator(op: Any, dtype=jnp.bfloat16):
     """Recursively cast every floating-point array inside an operator
     pytree to ``dtype``; integer/bool index arrays and static metadata
-    pass through untouched.  WELL sidecars become f32 islands."""
+    pass through untouched."""
     if op is None or isinstance(op, (int, float, bool, str, bytes, type)):
         return op
     if isinstance(op, (jax.Array, np.ndarray)):
         return _cast_leaf(op, dtype)
-    if isinstance(op, _F32Island):
-        return op
-    if isinstance(op, SparseOperator) and op.well is not None:
-        well = op.well
-        if dtype == jnp.bfloat16 and hasattr(well, "astype_values"):
-            # the WELL kernel natively streams bf16 values (computing
-            # in f32); the island pins the vector dtype at f32
-            well = well.astype_values(dtype)
-        return dataclasses.replace(
-            op,
-            ell=cast_operator(op.ell, dtype),
-            ell_t=cast_operator(op.ell_t, dtype),
-            well=_F32Island(inner=well),
-        )
     if dataclasses.is_dataclass(op) and not isinstance(op, type):
         changes = {}
         for f in dataclasses.fields(op):

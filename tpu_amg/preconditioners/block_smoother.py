@@ -13,13 +13,13 @@ for cut edges so the block stays an SPD upper bound:
 
 then factor each block and apply as gather → per-block solve → scatter.
 
-TPU-native design: aggregates are grouped into power-of-two *size
+Device design: aggregates are grouped into power-of-two *size
 buckets* (instead of padding everything to the global max — skewed
 distributions would otherwise cost O(n_aggs·bmax²) memory); the per-block
 inverses are materialized once at setup via batched Cholesky (the
 reference's ``into_sparse_mat`` analog, block_smoothers.rs:125-146), so
-each application is one batched (n_b, s_b, s_b) × (n_b, s_b) matmul on
-the MXU per bucket plus one gather and one disjoint scatter — replacing
+each application is one batched (n_b, s_b, s_b) × (n_b, s_b) matmul
+per bucket plus one gather and one disjoint scatter — replacing
 the reference's rayon loop of per-aggregate Cholesky solves
 (block_smoothers.rs:165-214).  Setup is fully vectorized: block
 extraction is one scatter over the intra-aggregate COO entries and the
@@ -82,6 +82,7 @@ class BlockSmoother(LinearOperator):
             sol = jnp.einsum(
                 "abc,ac->ab", b.inv_blocks, rhs,
                 preferred_element_type=rhs.dtype,
+                precision=jax.lax.Precision.HIGHEST,
             )
             out = self._scatter_add(out, b.idx, sol * b.mask, x)
         return out
@@ -95,6 +96,7 @@ class BlockSmoother(LinearOperator):
             sol = jnp.einsum(
                 "abc,acm->abm", b.inv_blocks, rhs,
                 preferred_element_type=rhs.dtype,
+                precision=jax.lax.Precision.HIGHEST,
             )
             out = self._scatter_add(out, b.idx, sol * b.mask[..., None], xs)
         return out
@@ -220,7 +222,7 @@ class BlockSmoother(LinearOperator):
             # a handful of times per rebuild: keep Cholesky FACTORS and
             # solve (potrs) instead of forming explicit inverses — skips
             # the trtri+gemm 60% of the factor cost.  The device path
-            # keeps inverses (TPU applies them as batched matmuls).
+            # keeps inverses (applied as batched matmuls).
             kind = "chol" if host_only else "inv"
             if host_only:
                 factor = _spd_cholesky

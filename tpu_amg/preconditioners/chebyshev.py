@@ -1,7 +1,7 @@
 """Chebyshev polynomial smoother.
 
 The reference leaves Gauss-Seidel unimplemented (smoothers.rs:26-27) and
-relies on diagonal/block smoothers; on TPU the natural heavy-duty
+relies on diagonal/block smoothers; on a device the natural heavy-duty
 smoother is a Chebyshev polynomial in D⁻¹A: it needs only SpMVs and
 AXPYs (no triangular solves, no sequential dependencies), making it both
 bandwidth-optimal per sweep and identical in parallel and serial — the
@@ -34,7 +34,10 @@ def estimate_lambda_max(a: LinearOperator, d_inv, key=None, iters: int = 20):
         return w / jnp.linalg.norm(w)
 
     v = jax.lax.fori_loop(0, iters, body, v)
-    lam = jnp.vdot(v, d_inv * a.mv(v)) / jnp.vdot(v, v)
+    hi = jax.lax.Precision.HIGHEST
+    lam = jnp.vdot(v, d_inv * a.mv(v), precision=hi) / jnp.vdot(
+        v, v, precision=hi
+    )
     return 1.05 * lam
 
 

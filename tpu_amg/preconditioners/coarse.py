@@ -2,9 +2,9 @@
 
 The reference offers sparse/dense Cholesky (``CoarseSolverKind::Cholesky``)
 with SVD/Eigh declared but unimplemented (reference coarse_solvers.rs:27-40).
-On TPU the coarsest grid (default ≤ 1000 dofs, hierarchy.rs:30-32) is far
-below MXU saturation as a sparse problem, so we densify it and use a dense
-Cholesky factor applied as two triangular solves — a single fused XLA op.
+The coarsest grid (default ≤ 1000 dofs, hierarchy.rs:30-32) is tiny as a
+sparse problem, so we densify it and apply a materialized Cholesky
+inverse as one dense matmul.
 We also actually implement the pseudo-inverse (eigh) variant the reference
 stubs out, for semi-definite coarse grids.
 """
@@ -17,8 +17,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpu_amg.linop import LinearOperator
+from tpu_amg.linop import HIGHEST, LinearOperator
 from tpu_amg.sparse.csr import CSR
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
 
 
 def _densify(a) -> jnp.ndarray:
@@ -50,11 +54,10 @@ class DenseCholeskySolver(LinearOperator):
     matmul.
 
     Role of the reference's Sparse/DenseCholeskySolve
-    (coarse_solvers.rs:55-276).  TPU note: triangular solves execute
-    (near-)sequentially on TPU and dominate the whole V-cycle (measured
-    ~100 ms for a 1.5k coarse grid); A⁻¹ is therefore materialized once
-    at build through the Cholesky factorization, making every
-    application a single MXU matmul (~µs).  Symmetric: rmv = mv.
+    (coarse_solvers.rs:55-276).  Triangular solves are sequential
+    chains; A⁻¹ is therefore materialized once at build through the
+    Cholesky factorization, making every application a single dense
+    matmul.  Symmetric: rmv = mv.
     """
 
     inv: jax.Array  # A⁻¹ = L⁻ᵀ L⁻¹, materialized at build
@@ -65,19 +68,18 @@ class DenseCholeskySolver(LinearOperator):
 
     @staticmethod
     def build(a) -> "DenseCholeskySolver":
-        # factor/invert on the HOST: this is one-time setup work, and
-        # dense factorization ops hit fragile TPU compiler paths on some
-        # runtimes; only the final inverse ships to the device.
+        # factor/invert on the host in f64: one-time setup work; only
+        # the final inverse ships to the device.
         dense = np.asarray(_densify(a))
         chol = np.linalg.cholesky(dense)
         inv_l = np.linalg.inv(chol)
         return DenseCholeskySolver(inv=jnp.asarray(inv_l.T @ inv_l))
 
     def mv(self, x):
-        return self.inv @ x
+        return jnp.matmul(self.inv, x, precision=HIGHEST)
 
     def mm(self, xs):
-        return self.inv @ xs
+        return jnp.matmul(self.inv, xs, precision=HIGHEST)
 
 
 @jax.tree_util.register_dataclass
@@ -105,17 +107,17 @@ class DensePinvSolver(LinearOperator):
         return DensePinvSolver(pinv=jnp.asarray((v * inv_w) @ v.T))
 
     def mv(self, x):
-        return self.pinv @ x
+        return jnp.matmul(self.pinv, x, precision=HIGHEST)
 
     def mm(self, xs):
-        return self.pinv @ xs
+        return jnp.matmul(self.pinv, xs, precision=HIGHEST)
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BandedCholeskySolver(LinearOperator):
-    """Sparse direct solve for large coarsest levels — the TPU-native
-    analog of the reference's sparse LLT (coarse_solvers.rs:166-276,
+    """Sparse direct solve for large coarsest levels — the analog of
+    the reference's sparse LLT (coarse_solvers.rs:166-276,
     symbolic+numeric factorization at :166-181, solve at :199-276).
 
     Setup (host, one-time): RCM-reorder the coarse operator to minimal
@@ -127,9 +129,8 @@ class BandedCholeskySolver(LinearOperator):
     Apply (device): two ``lax.scan`` substitution sweeps —
     forward  u_i = L_ii⁻¹ (x_i − L_{i,i−1} u_{i−1}) and
     backward z_i = L_ii⁻ᵀ (u_i − L_{i+1,i}ᵀ z_{i+1}) —
-    each step two dense (s,s)@(s,·) MXU matmuls.  TPU's sequential
-    triangular-solve weakness is sidestepped: the sequential chain is
-    n/s ≈ tens of steps of MXU work, not n scalar steps.
+    each step two dense (s,s)@(s,·) matmuls: the sequential chain is
+    n/s ≈ tens of steps of dense work, not n scalar steps.
     """
 
     inv_l_diag: jax.Array  # (nb, s, s) L_ii⁻¹
@@ -255,7 +256,7 @@ class BandedCholeskySolver(LinearOperator):
 
         def fwd(carry, inp):
             invd, lsub, xi = inp
-            u = invd @ (xi - lsub @ carry)
+            u = _mm(invd, xi - _mm(lsub, carry))
             return u, u
 
         z0 = jnp.zeros((s, k), dtype=xb.dtype)
@@ -263,7 +264,7 @@ class BandedCholeskySolver(LinearOperator):
 
         def bwd(carry, inp):
             invd, lsub_next, ui = inp
-            z = invd.T @ (ui - lsub_next.T @ carry)
+            z = _mm(invd.T, ui - _mm(lsub_next.T, carry))
             return z, z
 
         sub_next = jnp.concatenate(
@@ -298,7 +299,7 @@ DENSE_COARSE_CAP = 20_000
 def build_coarse_solver(kind: str, a, dtype=None) -> LinearOperator:
     """Reference ``CoarseSolverKind`` dispatch (coarse_solvers.rs:14-42).
 
-    ``cholesky`` picks dense (materialized inverse, one MXU matmul per
+    ``cholesky`` picks dense (materialized inverse, one matmul per
     apply) below DENSE_COARSE_CAP dofs and the banded sparse factorization
     above it — the role split of the reference's Dense/SparseCholeskySolve
     (coarse_solvers.rs:55-162 vs :166-276)."""

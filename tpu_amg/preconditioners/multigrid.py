@@ -1,6 +1,6 @@
 """Multigrid μ-cycle preconditioner.
 
-TPU-native analog of the reference's ``Multigrid`` (reference
+Device analog of the reference's ``Multigrid`` (reference
 multigrid.rs:172-518): levels are an immutable pytree (tuple of
 :class:`Level`), the μ-cycle is a Python recursion over the *static* level
 count, so ``jit`` unrolls it into one straight-line XLA program — no
@@ -14,7 +14,7 @@ level applies the coarse solver directly.  Symmetric by construction
 
 All ops accept (n,) vectors or (n, m) multi-vectors — the adaptive setup
 smooths 32–64 near-null candidates through full cycles at once
-(reference adaptivity.rs:307-390), which on TPU turns the SpMV into an
+(reference adaptivity.rs:307-390), which turns the SpMV into an
 SpMM and the smoother into batched matmuls.
 """
 

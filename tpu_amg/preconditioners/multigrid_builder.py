@@ -38,7 +38,7 @@ class MultigridConfig:
 
     ``smoother``: "block" (the reference's additive-Schwarz
     BlockSmoother), "chebyshev" (degree-``chebyshev_degree`` polynomial
-    in D⁻¹A — the TPU-native alternative with no partitioner cost),
+    in D⁻¹A — the alternative with no partitioner cost),
     or "l1"/"l2"/"jacobi" diagonal smoothing.
     """
 
@@ -57,9 +57,9 @@ class MultigridConfig:
     )
     dtype: object = jnp.float64
     prefer_dia: bool = True  # DIA fast path for diagonal-structured levels
-    dense_threshold: int = 2048  # densify small coarse levels (MXU matvec)
+    dense_threshold: int = 2048  # densify small coarse levels (dense matvec)
     # RCM-reorder coarse Galerkin levels whose aggregate-order bandwidth
-    # defeats the windowed device formats (WELL/banded slabs); the
+    # defeats the windowed device formats (banded slabs); the
     # permutation folds into R/P so the cycle is exactly similarity-
     # equivalent.  Levels that are DIA-eligible or dense keep their
     # ordering.
@@ -85,17 +85,9 @@ class MultigridConfig:
         # operator type: DIA/ELL/Dense)
         if self.smoother == "chebyshev":
             d_inv = jnp.asarray(1.0 / a.abs_row_sums(), dtype=self.dtype)
-            # strip any WELL sidecar for the build-time λ_max power
-            # iteration: under a host-pinned setup it would otherwise
-            # run the Pallas kernel in (very slow) interpret mode; the
-            # returned smoother keeps the full a_op for solve time
-            est_op = a_op
-            if isinstance(a_op, SparseOperator) and a_op.well is not None:
-                est_op = dataclasses.replace(a_op, well=None)
-            cheb = ChebyshevSmoother.build(
-                est_op, d_inv, degree=self.chebyshev_degree
+            return ChebyshevSmoother.build(
+                a_op, d_inv, degree=self.chebyshev_degree
             )
-            return dataclasses.replace(cheb, a=a_op)
         if self.smoother == "l1":
             diag = 1.0 / a.abs_row_sums()
         elif self.smoother == "jacobi":
@@ -119,9 +111,9 @@ class MultigridConfig:
 
         Only non-dense, non-DIA intermediate levels are touched: cd=1 /
         hub-row Galerkin operators inherit aggregate ordering whose
-        bandwidth defeats WELL and the banded slabs (the reference's CSR
-        kernel handles such rows for free, par_spmm.rs:37-84; on TPU the
-        fix is to restore bandedness)."""
+        bandwidth defeats the banded slabs (the reference's CSR kernel
+        handles such rows for free, par_spmm.rs:37-84; the fix here is to
+        restore bandedness)."""
         level_count = hierarchy.num_levels
         perms = [None] * level_count
         if not self.reorder_levels:
@@ -150,48 +142,57 @@ class MultigridConfig:
                 logger.debug("level %d RCM adopted", lvl)
         return perms
 
-    def build(self, hierarchy: Hierarchy) -> Multigrid:
+    def level_csrs(self, hierarchy: Hierarchy):
+        """Host CSRs each cycle level is built from, in the cycle's own
+        numbering (RCM-permuted levels included): one
+        ``(a, near_null, p, r)`` per level above the coarsest."""
         from tpu_amg.utils.reorder import (
             permute_cols,
             permute_rows,
             permute_symmetric,
         )
 
-        level_count = hierarchy.num_levels
         perms = self._level_perms(hierarchy)
-        levels = []
-        for lvl in range(level_count - 1):
+        out = []
+        for lvl in range(hierarchy.num_levels - 1):
             a = hierarchy.get_op(lvl)
             nn = hierarchy.get_near_null(lvl)
-            w = hierarchy.get_nn_weights(lvl)
+            p_csr = hierarchy.get_interpolation(lvl)
+            r_csr = hierarchy.get_restriction(lvl)
             if perms[lvl] is not None:
                 a = permute_symmetric(a, perms[lvl])
                 nn = nn[perms[lvl]]
+                p_csr = permute_rows(p_csr, perms[lvl])
+                r_csr = permute_cols(r_csr, perms[lvl])
+            if perms[lvl + 1] is not None:
+                p_csr = permute_cols(p_csr, perms[lvl + 1])
+                r_csr = permute_rows(r_csr, perms[lvl + 1])
+            out.append((a, nn, p_csr, r_csr))
+        return out
+
+    def build(self, hierarchy: Hierarchy) -> Multigrid:
+        level_count = hierarchy.num_levels
+        levels = []
+        for lvl, (a, nn, p_csr, r_csr) in enumerate(
+            self.level_csrs(hierarchy)
+        ):
+            w = hierarchy.get_nn_weights(lvl)
             if a.nrows <= self.dense_threshold:
-                # small coarse levels: dense matvec on the MXU beats any
-                # gather-based sparse path on TPU
+                # small coarse levels: one dense matvec in place of a
+                # sparse gather
                 from tpu_amg.linop import DenseOperator
 
                 a_op = DenseOperator(
                     mat=jnp.asarray(a.to_dense(), dtype=self.dtype)
                 )
             else:
-                # wide DIA envelope: Galerkin stencils reach ~125
-                # diagonals and are still far faster as slice-FMAs than
-                # as ELL gathers on TPU (see DESIGN.md §1)
+                # wide DIA envelope: Galerkin stencils of structured
+                # grids reach ~125 diagonals and stay slice-FMAs
                 a_op = SparseOperator.from_csr(
                     a, dtype=self.dtype, prefer_dia=self.prefer_dia,
                     dia_max_diags=160, dia_max_density=8.0,
                 )
             smoother = self._build_smoother(a, nn, w, a_op)
-            p_csr = hierarchy.get_interpolation(lvl)
-            r_csr = hierarchy.get_restriction(lvl)
-            if perms[lvl] is not None:
-                p_csr = permute_rows(p_csr, perms[lvl])
-                r_csr = permute_cols(r_csr, perms[lvl])
-            if perms[lvl + 1] is not None:
-                p_csr = permute_cols(p_csr, perms[lvl + 1])
-                r_csr = permute_rows(r_csr, perms[lvl + 1])
             p_op = SparseOperator.from_csr(p_csr, dtype=self.dtype)
             r_op = SparseOperator.from_csr(r_csr, dtype=self.dtype)
             # Smoothed-SA restrictions have rows = 2/3-D aggregate blobs
@@ -199,15 +200,14 @@ class MultigridConfig:
             # landed on the ELL gather path but P is window-dense, apply
             # R as Pᵀ through P's slabs instead (R = Pᵀ exactly,
             # reference interpolation/mod.rs:824-827): one ELL-gathered
-            # restriction measured 39 ms vs µs for the transposed MXU
-            # path at 24k-dof elasticity.
+            # restriction's gather pads every row to the hub row, while
+            # P's slabs stream contiguously.
             from tpu_amg.linop import TransposeOperator
             from tpu_amg.sparse.banded import BandedDense, BandedStack
             from tpu_amg.sparse.ell import ELL as _ELL
 
             if (
                 isinstance(r_op.ell, _ELL)
-                and r_op.well is None
                 and r_op.ell.k >= 64
                 and isinstance(p_op.ell, (BandedDense, BandedStack))
             ):

@@ -72,7 +72,7 @@ def build_smoother(kind: str, a, omega: float = 1.0) -> DiagonalOperator:
     """Reference ``SmootherKind::build`` (smoothers.rs:23-33).
 
     kind in {"l1", "l2", "jacobi"}; Gauss-Seidel variants are
-    unimplemented in the reference too (smoothers.rs:26-27) — on TPU the
+    unimplemented in the reference too (smoothers.rs:26-27) — here the
     equivalent role is filled by BlockSmoother / Chebyshev.
     """
     if kind == "l1":

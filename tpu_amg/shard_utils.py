@@ -3,7 +3,7 @@
 JAX's sharding-in-types cannot infer output shardings for contractions
 over sharded dims (``jnp.vdot`` → dot_general), but elementwise-multiply
 + ``jnp.sum`` reduces cleanly (the reduction over the sharded axis
-auto-inserts a psum over ICI and yields a replicated scalar).  All
+auto-inserts a psum across devices and yields a replicated scalar).  All
 vectors in this library are real, so the inner products below are exact
 replacements.
 """
@@ -33,7 +33,7 @@ def ensure_replicated(x: jax.Array) -> jax.Array:
     legitimately receive sharded vectors at the shard/replicate boundary
     (dist.shard_multigrid, reference multigrid.rs:152-159 analog), so
     these operators gather the vector once here — a small coarse-level
-    all-gather over ICI — and stay single-chip internally."""
+    all-gather across devices — and stay single-chip internally."""
     try:
         spec = jax.typeof(x).sharding.spec
     except Exception:  # concrete array outside jit, or no sharding info

@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients.
 
-TPU-native replacement for faer's ``conjugate_gradient`` driver
+Device-side replacement for faer's ``conjugate_gradient`` driver
 (consumed by the reference at utils.rs:600-609 with ``CgParams``:
 abs tol 0, rel tol, max iters, initial-guess status).  The whole solve is
 one ``lax.while_loop`` under jit: each iteration is one SpMV, one

@@ -1,6 +1,6 @@
 """Preconditioned stationary (Richardson) iteration.
 
-TPU-native replacement for faer's ``stationary_iteration`` driver used by
+Device-side replacement for faer's ``stationary_iteration`` driver used by
 the reference's ``test_solver`` (utils.rs:664-689):
 
     x_{k+1} = x_k + M(b - A x_k)

@@ -6,10 +6,10 @@ Two complementary representations:
   Mirrors the role of faer's ``SparseRowMat`` in the reference
   (reference core.rs:13-17): COO→CSR construction with duplicate summing,
   transpose, SpGEMM, Galerkin triple products.
-- :class:`ELL` — the TPU compute format: rows padded to a fixed width so
-  SpMV/SpMM become dense gathers + FMAs with static shapes (MXU/VPU
-  friendly), replacing the reference's rayon-parallel blocked CSR SpMM
-  (reference par_spmm.rs).
+- :class:`ELL` — the general device compute format: rows padded to a
+  fixed width so SpMV/SpMM become gathers + FMAs with static shapes,
+  replacing the reference's rayon-parallel blocked CSR SpMM (reference
+  par_spmm.rs).
 """
 
 from tpu_amg.sparse.bsr import BSR

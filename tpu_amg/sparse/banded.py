@@ -1,13 +1,13 @@
-"""BandedDense — dense-slab storage over selected column blocks, the MXU
-path for gather-hostile sparse operators (smoothed-SA transfers, above
+"""BandedDense — dense-slab storage over selected column blocks, the
+batched-matmul path for gather-hostile sparse operators (smoothed-SA transfers, above
 all).
 
 Smoothing the tentative prolongation densifies it: P columns (and hence
 R rows) grow to hundreds-or-thousands of entries over an aggregate's
 smeared support (reference interpolation/mod.rs:927-1028 does the same;
-its CPU CSR kernel doesn't care).  On TPU, a row-padded ELL of such an
-operator is catastrophic — a 1518×24000 restriction with k=3867 costs
-~39 ms/apply in XLA gathers, 95% of a measured V-cycle.
+its CPU CSR kernel doesn't care).  A row-padded ELL of such an operator
+pads every row to the widest one — a 1518×24000 restriction with
+k=3867 stores 2.6x its nnz, one gather per padded slot.
 
 Those rows are *block-dense*: their support concentrates in a modest
 number of 128-column blocks (for 3-D problems the support is a stack of
@@ -20,7 +20,7 @@ selected blocks.  Apply is then
     y[tile] = slab[tile] @ x2d[q[tile]].ravel()
 
 — one efficient XLA row-gather (G rows of 512 B per tile) plus one
-batched MXU matmul.  No per-nonzero gathers, no Pallas needed; storage
+batched matmul.  No per-nonzero gathers; storage
 ≈ nnz for block-dense rows (gated by ``max_inflation`` otherwise).
 The transpose apply (restriction as Pᵀ) is the same contraction followed
 by a 128-wide row scatter-add.
@@ -88,6 +88,7 @@ class BandedDense:
         y = jnp.einsum(
             "trw,tw->tr", self.slabs, wins,
             preferred_element_type=self.dtype,
+            precision=jax.lax.Precision.HIGHEST,
         )
         return y.reshape(-1)[: self.nrows]
 
@@ -96,6 +97,7 @@ class BandedDense:
         y = jnp.einsum(
             "trw,twm->trm", self.slabs, wins,
             preferred_element_type=self.dtype,
+            precision=jax.lax.Precision.HIGHEST,
         )
         return y.reshape(-1, xs.shape[1])[: self.nrows]
 
@@ -105,7 +107,7 @@ class BandedDense:
     # transpose application: y = Aᵀx.  This is how restrictions run when
     # R rows are 3-D blobs: R = Pᵀ exactly (reference
     # interpolation/mod.rs:824-827) and P — fine-row-major — IS
-    # block-dense, so apply P's slabs backwards: per tile one MXU
+    # block-dense, so apply P's slabs backwards: per tile one dense
     # contraction then a 128-wide row scatter-add into the output.
     def rmv(self, x: jax.Array) -> jax.Array:
         from tpu_amg.shard_utils import ensure_replicated
@@ -116,6 +118,7 @@ class BandedDense:
         contrib = jnp.einsum(
             "trw,tr->tw", self.slabs, xp.reshape(t, r),
             preferred_element_type=self.dtype,
+            precision=jax.lax.Precision.HIGHEST,
         )
         out2d = jnp.zeros((self.x2d_rows, self.bw), dtype=self.dtype)
         out2d = out2d.at[self.q.reshape(-1)].add(
@@ -135,6 +138,7 @@ class BandedDense:
         contrib = jnp.einsum(
             "trw,trm->twm", self.slabs, xp.reshape(t, r, m),
             preferred_element_type=self.dtype,
+            precision=jax.lax.Precision.HIGHEST,
         )
         out = jnp.zeros((self.x2d_rows, self.bw, m), dtype=self.dtype)
         out = out.at[self.q.reshape(-1)].add(

@@ -1,11 +1,10 @@
-"""BSR (block-sparse row) format — TPU path for block-structured levels.
+"""BSR (block-sparse row) format — device path for block-structured levels.
 
 SA coarse operators are genuinely block-dense: P carries a dense
 candidate-dimension column block per aggregate, so A_c = Pᵀ A P has
 cd×cd dense blocks (reference interpolation/mod.rs:763-808).  Gathering
-whole blocks amortizes the TPU's weak point — gather op count — by bs×
-versus scalar ELL, and turns each block product into a small dense
-contraction (VPU/MXU-friendly).
+whole blocks cuts the gather count by bs× versus scalar ELL, and turns
+each block product into a small dense contraction.
 
 Layout: block-row-padded (ELL-of-blocks):
   data: (n_brows, K, bs, bs), cols: (n_brows, K) block-column ids
@@ -94,6 +93,7 @@ class BSR:
         y = jnp.einsum(
             "nkij,nkj->ni", self.data, g,
             preferred_element_type=jnp.result_type(self.dtype, x.dtype),
+            precision=jax.lax.Precision.HIGHEST,
         )
         return y.reshape(-1)
 
@@ -109,6 +109,7 @@ class BSR:
         y = jnp.einsum(
             "nkij,nkjm->nim", self.data, g,
             preferred_element_type=jnp.result_type(self.dtype, xs.dtype),
+            precision=jax.lax.Precision.HIGHEST,
         )
         return y.reshape(self.nrows, m)
 
@@ -119,7 +120,10 @@ class BSR:
         bs = self.block_size
         brow_ids = jnp.arange(self.nrows // bs)[:, None]
         hit = self.cols == brow_ids  # (n_brows, K)
-        diag_blocks = jnp.einsum("nk,nkij->nij", hit.astype(self.dtype), self.data)
+        diag_blocks = jnp.einsum(
+            "nk,nkij->nij", hit.astype(self.dtype), self.data,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         return jnp.diagonal(diag_blocks, axis1=1, axis2=2).reshape(-1)
 
     def abs_row_sums(self) -> jax.Array:

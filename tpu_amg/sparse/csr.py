@@ -5,9 +5,9 @@ The reference builds everything on faer's ``SparseRowMat<usize, f64>``
 duplicate summing (``try_new_from_triplets``, used throughout reference
 interpolation/mod.rs and utils.rs).  This module provides the equivalent:
 a small immutable CSR container backed by numpy (setup runs on host; the
-TPU compute path converts to :class:`tpu_amg.sparse.ell.ELL`).
+device compute path converts to :class:`tpu_amg.sparse.ell.ELL`).
 
-Design notes (TPU-first):
+Design notes:
 - Setup algorithms (partitioning, SpGEMM, interpolation assembly) are
   one-time host work, amortized over many solves; numpy/C++-speed is
   sufficient and keeps shapes dynamic where XLA would need padding.
@@ -172,7 +172,7 @@ class CSR:
         return out
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
-        """Host-side reference SpMV (oracle for TPU kernels)."""
+        """Host-side reference SpMV (oracle for device kernels)."""
         x = _as_np(x)
         out_shape = (self.nrows,) + x.shape[1:]
         out = np.zeros(out_shape, dtype=np.result_type(self.data, x))

@@ -1,4 +1,4 @@
-"""DIA (diagonal) sparse format — the bandwidth-optimal TPU SpMV path.
+"""DIA (diagonal) sparse format — the bandwidth-optimal SpMV path.
 
 For matrices whose nonzeros fall on a small number of (off-)diagonals —
 structured-grid stencils (1/2/3-D Poisson, anisotropic diffusion on
@@ -9,8 +9,8 @@ value vectors eliminates the ELL column-index stream entirely:
 
 Each shift is a contiguous slice (implemented as jnp.roll whose
 wrapped-around lanes are annihilated by structural zeros in ``data_d``),
-so the SpMV is pure stream + FMA on the VPU with ~2x less HBM traffic
-than ELL (no cols array, no gather).  This is the TPU analog of the
+so the SpMV is pure stream + FMA with ~2x less memory traffic than
+ELL (no cols array, no gather).  This is the device analog of the
 reference's observation that its matrices are "near-diagonally clustered"
 (reference core.rs:47-55) — but exploited for bandwidth instead of
 cache locality.

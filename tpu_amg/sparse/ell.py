@@ -1,7 +1,7 @@
-"""ELL (padded-row) sparse format — the TPU compute path.
+"""ELL (padded-row) sparse format — the general device compute path.
 
 The reference's only performance-critical kernel is a rayon-parallel
-blocked-CSR SpMM (reference par_spmm.rs:98-132).  On TPU, irregular CSR row
+blocked-CSR SpMM (reference par_spmm.rs:98-132).  Irregular CSR row
 loops defeat XLA's tiling; instead we pad every row to a fixed width K
 (max nnz/row, rounded up to a lane-friendly multiple), giving SpMV/SpMM
 static shapes:
@@ -9,7 +9,7 @@ static shapes:
     y[i] = sum_k data[i, k] * x[cols[i, k]]
 
 which XLA compiles to a row-gather + FMA + row-reduction, entirely
-memory-bound and vectorizable on the VPU.  FEM matrices have bounded
+memory-bound and vectorizable.  FEM matrices have bounded
 nnz/row (the same assumption the reference makes, core.rs:47-55), so the
 padding overhead is small (typically < 2x, often ~1.1x).
 
@@ -37,7 +37,7 @@ def _row_gather(x: jax.Array, idx: jax.Array, extra_dims: int) -> jax.Array:
     JAX's sharding-in-types cannot infer the gather output sharding when
     the indices are partitioned (the distributed row-sharded SpMV path);
     the natural choice is idx's own spec extended with replicated trailing
-    dims — the gather of x then lowers to an all-gather of x over ICI
+    dims — the gather of x then lowers to an all-gather of x across devices
     followed by a shard-local gather.  Callers must be inside a
     ``jax.set_mesh`` context for distributed use.
     """
@@ -115,8 +115,8 @@ class ELL:
 
     def to_csr(self):
         """Host CSR from the padded device layout (zero slots dropped);
-        the bridge back to construction-time algorithms (HaloWELL
-        sharding, SpGEMM) that need the raw sparsity."""
+        the bridge back to construction-time algorithms (sharding,
+        SpGEMM) that need the raw sparsity."""
         import numpy as np
 
         from tpu_amg.sparse.csr import CSR
@@ -138,7 +138,7 @@ class ELL:
         """SpMV: y = A @ x for x of shape (ncols,).
 
         One (nrows, K) gather + FMA + row-sum; XLA fuses these into a
-        single memory-bound loop (the TPU replacement for the reference's
+        single memory-bound loop (the replacement for the reference's
         ParSpmmOp::apply, par_spmm.rs:98-132).
         """
         gathered = _row_gather(x, self.cols, 0)  # (nrows, K)
@@ -149,7 +149,7 @@ class ELL:
 
         Scans over the K padded diagonals so the live intermediate is
         O(nrows * m), never O(nrows * K * m).  Each step is a row-gather
-        of X (efficient on TPU: whole (m,)-rows move together) plus an
+        of X (whole (m,)-rows move together) plus an
         FMA.  This is the hot op of adaptive setup (smoothing 32-64
         near-null candidates at once; reference adaptivity.rs:307-390).
         """

@@ -1,6 +1,6 @@
 """Structured-grid acceleration: gather-free transfers + DIA levels.
 
-On TPU the expensive primitive is the gather; for tensor-product grids
+A gather moves index bytes as well as values; for tensor-product grids
 (the benchmark problems and most production fine grids) every V-cycle
 ingredient can be expressed gather-free:
 
@@ -12,7 +12,7 @@ ingredient can be expressed gather-free:
   composition of (structured P_t, DIA SpMV, diagonal scale)
   (:class:`SmoothedTransferP`/``R``) — the algebraic smoothed-aggregation
   operator without materializing its widened stencil,
-- smoothers: Chebyshev (SpMV + AXPY only), coarsest: dense MXU solve.
+- smoothers: Chebyshev (SpMV + AXPY only), coarsest: dense solve.
 
 ``build_structured_multigrid`` assembles the full hierarchy: the Galerkin
 coarse matrices are still computed exactly (host SpGEMM of the smoothed
@@ -188,7 +188,7 @@ def build_structured_multigrid(
         sizes = part.expand_blocks(1).agg_sizes()
         weights_np = 1.0 / np.sqrt(sizes[part.node_to_agg].astype(np.float64))
         if cur.nrows <= 4096:
-            # small mid levels: dense MXU matvec beats everything
+            # small mid levels: one dense matvec
             from tpu_amg.linop import DenseOperator
 
             a_op: LinearOperator = DenseOperator(

@@ -1,10 +1,10 @@
 """Hierarchy checkpoint / resume.
 
 The reference serializes nothing but viz JSON (SURVEY.md §5: faer is
-built with serde but unused for state).  For a production TPU solver the
+built with serde but unused for state).  For a production solver the
 hierarchy — per-level CSR + P/R + near-null basis + weights — is the
 natural checkpoint artifact: setup is the expensive phase, and a saved
-hierarchy lets a later job (or a different pod slice) rebuild the device
+hierarchy lets a later job (or a different machine) rebuild the device
 operators and resume solving immediately.
 
 Format: one ``.npz`` (all arrays) + embedded JSON metadata.  Everything

@@ -168,7 +168,7 @@ def unstructured_poisson_2d(
     """Pseudo-unstructured 2-D FEM-graph Laplacian: jittered side² grid
     points, randomly renumbered, Delaunay-triangulated, then
     RCM-reordered — the matrix class the reference's MFEM loader serves
-    (reference utils.rs:269-350) and the hard case for TPU SpMV."""
+    (reference utils.rs:269-350) and the hard case for a gather SpMV."""
     import scipy.sparse as sps
     from scipy.sparse.csgraph import reverse_cuthill_mckee
     from scipy.spatial import Delaunay

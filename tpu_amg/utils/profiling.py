@@ -1,7 +1,7 @@
 """Profiling / tracing utilities.
 
 The reference's observability is `log`-level timing spans around
-par-op construction and smooth-vector search (SURVEY.md §5).  The TPU
+par-op construction and smooth-vector search (SURVEY.md §5).  The
 equivalents here:
 
 - :func:`trace` — context manager around ``jax.profiler`` (writes a
@@ -17,7 +17,7 @@ import contextlib
 import logging
 import time
 
-import numpy as np
+import jax
 
 logger = logging.getLogger(__name__)
 
@@ -49,12 +49,7 @@ class Timer:
 
     def __exit__(self, *exc):
         if self.sync_value is not None:
-            # host transfer forces completion even over remote tunnels
-            np.asarray(
-                self.sync_value.ravel()[0]
-                if hasattr(self.sync_value, "ravel")
-                else self.sync_value
-            )
+            jax.block_until_ready(self.sync_value)
         self.elapsed = time.perf_counter() - self.t0
         logger.info("%s: %.3fs", self.label, self.elapsed)
         return False

@@ -1,7 +1,7 @@
 """Bandwidth-reducing reordering (reverse Cuthill-McKee).
 
-TPU SpMV strongly prefers diagonal-clustered matrices (DESIGN.md §1: DIA
-slice-FMAs vs gathers) and the distributed halo exchange requires a
+SpMV prefers diagonal-clustered matrices (DIA slice-FMAs need no
+index stream) and the distributed halo exchange requires a
 banded ordering (parallel/halo.py).  RCM renumbering turns general FEM
 orderings into banded ones: with a small enough band the matrix becomes
 DIA-eligible; otherwise it still tightens the halo width and gather

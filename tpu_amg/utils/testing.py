@@ -86,7 +86,9 @@ def approx_convergence_factor(
     xs = jax.random.normal(key, (n, num_vectors), dtype=jnp.float64)
 
     def a_norms(v):
-        return jnp.sqrt(jnp.einsum("nm,nm->m", v, a.mm(v)))
+        return jnp.sqrt(jnp.einsum(
+            "nm,nm->m", v, a.mm(v), precision=jax.lax.Precision.HIGHEST
+        ))
 
     factors = jnp.ones(num_vectors)
 
@@ -112,8 +114,8 @@ def symmetry_test(
         ku, kv = jax.random.split(jax.random.fold_in(key, i))
         u = jax.random.normal(ku, (n,), dtype=jnp.float64)
         v = jax.random.normal(kv, (n,), dtype=jnp.float64)
-        lhs = jnp.vdot(u, m.mv(v))
-        rhs = jnp.vdot(v, m.mv(u))
+        lhs = jnp.vdot(u, m.mv(v), precision=jax.lax.Precision.HIGHEST)
+        rhs = jnp.vdot(v, m.mv(u), precision=jax.lax.Precision.HIGHEST)
         scale = jnp.maximum(jnp.abs(lhs), jnp.abs(rhs))
         ok = ok and bool(jnp.abs(lhs - rhs) <= rtol * jnp.maximum(scale, 1.0))
     return ok
